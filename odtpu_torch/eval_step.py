@@ -48,12 +48,18 @@ class EvalStep:
                            self.conf_thresh, self.nms_thresh, self.top_k,
                            row_compact=False)
         rows = _compact(dense, self.rows_cap)
-        n_dense = (dense[..., 0] > 0).sum((1, 2), dtype=torch.int32)
-        n_kept = (rows[..., 0] > 0).sum(1, dtype=torch.int32)
-        return {"rows": rows, "dropped": n_dense - n_kept}
+        return {"rows": rows, "dropped": dropped(dense, rows)}
 
     def __call__(self, images: Tensor) -> dict:
         return self.detect(*self.forward(images))
+
+
+def dropped(dense: Tensor, rows: Tensor) -> Tensor:
+    """int32 [B]: per-class survivors in ``dense`` [B, C, K, 5] that the
+    cross-class ``rows`` [B, R, 6] do not keep."""
+    n_dense = (dense[..., 0] > 0).sum((1, 2), dtype=torch.int32)
+    n_kept = (rows[..., 0] > 0).sum(1, dtype=torch.int32)
+    return n_dense - n_kept
 
 
 def make_eval_step(model, priors: Tensor, cfg) -> EvalStep:

@@ -1,4 +1,5 @@
-"""The CUDA greedy-NMS kernel against its plain version, on a card.
+"""The CUDA greedy-NMS kernel's two entries against their plain twins, on
+a card.
 
 These tests need a CUDA card and skip without one. This file imports no
 JAX, so on the card's machine it runs without the repo's conftest:
@@ -61,3 +62,48 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(priors):
     with pytest.raises(ValueError, match="at most"):
         nms_kernel.nms_mask_cuda(torch.rand(1, 1025, 4, device="cuda"),
                                  torch.rand(1, 1025, device="cuda"), 0.45)
+
+
+def test_rows_kernel_equals_twin_on_edge_cases(priors):
+    g = torch.Generator().manual_seed(3)
+    for label, boxes, scores in chip_smoke.edge_cases(g, priors):
+        chip_smoke.check_rows(*chip_smoke.rows_case(g, boxes, scores), label)
+
+
+def test_rows_wrapper_refuses_what_it_cannot_take(priors):
+    decoded = torch.rand(2, 10, 4, device="cuda")
+    order = torch.randint(0, 10, (6, 5), device="cuda")
+    scores = torch.rand(6, 5, device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_kernel.nms_rows_cuda(decoded.cpu(), order.cpu(), scores.cpu(), 3,
+                                 0.45)
+    with pytest.raises(ValueError, match="top_scores on"):
+        nms_kernel.nms_rows_cuda(decoded.cpu(), order, scores, 3, 0.45)
+    with pytest.raises(TypeError):
+        nms_kernel.nms_rows_cuda(decoded, order.int(), scores, 3, 0.45)
+    with pytest.raises(TypeError):
+        nms_kernel.nms_rows_cuda(decoded.double(), order, scores, 3, 0.45)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_kernel.nms_rows_cuda(decoded.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), order, scores, 3, 0.45)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_kernel.nms_rows_cuda(decoded, order.t().contiguous().t(),
+                                 scores, 3, 0.45)
+    with pytest.raises(ValueError, match="Cf = 2"):
+        nms_kernel.nms_rows_cuda(decoded, order, scores, 2, 0.45)
+    with pytest.raises(ValueError, match="at most"):
+        nms_kernel.nms_rows_cuda(
+            torch.rand(1, 2000, 4, device="cuda"),
+            torch.zeros(1, 1025, dtype=torch.int64, device="cuda"),
+            torch.rand(1, 1025, device="cuda"), 1, 0.45)
+
+
+def test_mask_kernel_writes_bool(priors):
+    boxes = torch.rand(3, 40, 4, device="cuda").sort(-1)[0]
+    scores = torch.rand(3, 40, device="cuda").sort(-1, descending=True)[0]
+    alive = nms_kernel.nms_mask_cuda(boxes, scores, 0.45, 0.01)
+    torch.cuda.synchronize()
+    assert alive.dtype == torch.bool and alive.shape == (3, 40)
+    assert int(alive.view(torch.uint8).max()) == 1  # 0 or 1, nothing else
+    assert torch.equal(alive, nms_kernel.nms_mask_plain(boxes, scores, 0.45,
+                                                        0.01))

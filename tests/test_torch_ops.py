@@ -177,6 +177,58 @@ def test_per_class_nms_padded_small_batch(rng, pallas_interpret):
     assert float(padded[1:].abs().sum()) == 0.0
 
 
+def test_nms_rows_plain_matches_pallas_uncompacted_rows(rng,
+                                                       pallas_interpret):
+    """The rows entry's plain twin, fed the serving path's arguments (row
+    slices of the per-set sort, the flat b*P + order gather over Cf
+    classes), equals per_class_nms_pallas(compact_rows=False)."""
+    priors, loc, conf = _scene(rng, 3, 150, 6)
+    decoded = boxes.decode(_t(loc), _t(priors)[None], (0.1, 0.2))
+    conf_fg = _t(conf)[..., 1:]
+    top_scores, order = nms_kernel._top_order(conf_fg, 40)
+    assert order.stride(0) == 150  # slices, as the kernel receives them
+    rows = nms_kernel.nms_rows_plain(decoded, order, top_scores, 5, 0.45,
+                                     0.01)
+    want = np.asarray(pallas_interpret.per_class_nms_pallas(
+        jnp.asarray(decoded.numpy()), jnp.asarray(conf_fg.numpy()), 0.01,
+        0.45, 40, compact_rows=False))
+    np.testing.assert_array_equal(rows.reshape(3, 5, 40, 5).numpy(), want)
+    np.testing.assert_array_equal(
+        nms_kernel.nms_rows(decoded, order, top_scores, 5, 0.45,
+                            0.01).numpy(), rows.numpy())
+    assert 0 < (want[..., 0] > 0).sum() < want[..., 0].size
+
+
+@pytest.mark.parametrize("compact_rows", [False, True])
+def test_per_class_nms_pads_short_sets_like_pallas(rng, pallas_interpret,
+                                                   compact_rows):
+    """P = 24 priors and top_k = 30: every set holds k = 24 candidates
+    and 6 zero rows of padding."""
+    priors, loc, conf = _scene(rng, 2, 24, 4)
+    decoded = boxes.decode(_t(loc), _t(priors)[None], (0.1, 0.2))
+    conf_fg = _t(conf)[..., 1:]
+    got = nms_kernel.per_class_nms(decoded, conf_fg, 0.01, 0.45, 30,
+                                   compact_rows=compact_rows).numpy()
+    want = np.asarray(pallas_interpret.per_class_nms_pallas(
+        jnp.asarray(decoded.numpy()), jnp.asarray(conf_fg.numpy()), 0.01,
+        0.45, 30, compact_rows=compact_rows))
+    assert got.shape == (2, 3, 30, 5)
+    np.testing.assert_array_equal(got, want)
+    assert not got[:, :, 24:].any()
+
+
+def test_nms_rows_cuda_refuses_cpu_tensors_and_bad_shapes():
+    decoded = torch.zeros(2, 10, 4)
+    order = torch.zeros(6, 5, dtype=torch.int64)
+    scores = torch.zeros(6, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_kernel.nms_rows_cuda(decoded, order, scores, 3, 0.45)
+    with pytest.raises(ValueError, match="Cf = 2"):
+        nms_kernel.nms_rows(decoded, order, scores, 2, 0.45)
+    with pytest.raises(ValueError, match="want decoded"):
+        nms_kernel.nms_rows_plain(decoded, order, scores[:, :4], 3, 0.45)
+
+
 def test_nms_rows_match_odtpu(rng):
     b, s = _sets(rng, 1, 60)
     perm = rng.permutation(60)  # unsorted input: nms_rows sorts
