@@ -29,25 +29,59 @@ Phases, each printing one JSON line:
    against its plain twin on the batch's candidates. In bfloat16 a
    ``detect_split`` line times each stage of the serving path's detect
    tail, on the device alone and as launched.
+5. train: seeded full-width SSD300-VGG16 takes train steps on the card
+   (bfloat16, batch 32, the photometric distortion on the device, LR
+   1e-5, seeded uint8 300x300 images with one GT box each): 3 warm-up
+   steps, then 20 timed by CUDA events; images/s, ms/step, the split by
+   stage (augment, forward, loss = match and mine, backward, optimizer),
+   peak memory, and every step's loss finite with num_pos > 0. The NMS
+   kernel must not launch in a train step.
+6. train_parity: one float32 step (TF32 off, batch 2) on the card and the
+   same step on the CPU, with the same weights, batch and injected
+   augmentation parameters, and on the CPU with the convs in float64.
+   The card takes the step with cuDNN and again with cuDNN off. The
+   batch gives every head and extra layer a gradient, which the float64
+   step must show. Each tensor's card update must lie within a relative
+   L2 error of 1e-3 of the CPU's with cuDNN off, and of 5e-3 with cuDNN;
+   the counts within 1e-3, the ReLU sign flips between the forwards and
+   the losses are printed.
+7. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
+   temporary directory under ``build/`` (XML and ImageSets; the images
+   served from memory through the reader): a first run from a
+   ``--basenet`` npz saves and validates, a second auto-resumes from its
+   checkpoint, saves and validates again. Each validation scores VOC mAP
+   through the serving path, so ``nms_rows`` must launch once per eval
+   batch.
 Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``,
 printed only when every phase passed.
 """
 
 import json
+import math
 import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from odtpu_torch import eval_step
-from odtpu_torch.infer import Detector, power_limit, random_images
+from odtpu_torch.data.device_aug import draw_params
+from odtpu_torch.data.loader import DetLoader, NetworkInput
+from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
+from odtpu_torch.eval.evaluator import EvalVOC
+from odtpu_torch.infer import (Detector, power_limit, random_images,
+                               random_state_dict)
 from odtpu_torch.models import probe_layer_dims
 from odtpu_torch.ops import detect
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
+from odtpu_torch.train import fit
+from odtpu_torch.train_step import create_train_state, make_train_step
 from odtpu_torch.utils.config import default_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -464,7 +498,8 @@ def dense_contract(step, loc, conf, label, calls=5):
 def phase_main_path(dtype, warmup=3, batches=20):
     cfg = default_cfg()
     cfg.TPU.COMPUTE_DTYPE = dtype
-    det = Detector(cfg, device="cuda", seed=0)
+    weights = random_state_dict(cfg, seed=0)
+    det = Detector(cfg, weights, device="cuda")
     step = det.step
     images = torch.from_numpy(
         random_images(BATCH, cfg.MODEL.IMAGE_SIZE, 0)).cuda()
@@ -534,7 +569,7 @@ def phase_main_path(dtype, warmup=3, batches=20):
         # run in another order, in float32 on both with TF32 off)
         x = images[:2]
         with torch.inference_mode():
-            cpu = Detector(cfg, device="cpu", seed=0).step.forward(x.cpu())
+            cpu = Detector(cfg, weights, device="cpu").step.forward(x.cpu())
             card = det.step.forward(x)
         loc_err = (card[0].cpu() - cpu[0]).abs().max().item()
         conf_err = (card[1].cpu() - cpu[1]).abs().max().item()
@@ -549,6 +584,368 @@ def phase_main_path(dtype, warmup=3, batches=20):
     return result
 
 
+def train_batch(batch, seed=0, device="cuda"):
+    """bench.py ``_train_throughput``'s inputs: seeded uint8 300x300 BGR
+    images, one GT box [0.2, 0.2, 0.7, 0.7] with label 3 each, padded to
+    60 with label -1."""
+    images = torch.from_numpy(random_images(batch, (300, 300), seed))
+    boxes = torch.zeros(batch, 60, 4)
+    boxes[:, 0] = torch.tensor([0.2, 0.2, 0.7, 0.7])
+    labels = torch.full((batch, 60), -1, dtype=torch.int32)
+    labels[:, 0] = 3
+    return images.to(device), boxes.to(device), labels.to(device)
+
+
+def train_cfg(dtype):
+    cfg = default_cfg()
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.DATASET.DEVICE_PHOTOMETRIC = True
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+    return cfg
+
+
+STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+
+
+def stage_split(step, state, images, boxes, labels, iters):
+    """ms of each stage of a train step, by CUDA events recorded between
+    the stages of ``iters`` steps (the device's timeline, launch gaps
+    included), averaged."""
+    marks = []
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        x = step.augment(images, state.step)
+        ev[1].record()
+        loc, conf = step.forward(state, x)
+        ev[2].record()
+        metrics = step.loss(loc, conf, boxes, labels)
+        ev[3].record()
+        step.backward(state, metrics)
+        ev[4].record()
+        step.update(state)
+        ev[5].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / iters
+            for i, name in enumerate(STAGES)}
+
+
+def phase_train(warmup=3, steps=20, split_iters=10):
+    cfg = train_cfg("bfloat16")
+    state, priors = create_train_state(cfg, "cuda", seed=0)
+    step = make_train_step(priors, cfg)
+    images, boxes, labels = train_batch(BATCH)
+    for _ in range(warmup):
+        step(state, images, boxes, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = [step(state, images, boxes, labels) for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"nms_mask": 0, "nms_rows": 0}:
+        raise AssertionError("train steps launched the NMS kernel: "
+                             "{}".format(launches))
+    ms = start.elapsed_time(end) / steps
+    losses = [float(m["loss"]) for m in metrics]
+    num_pos = [int(m["num_pos"]) for m in metrics]
+    if not all(math.isfinite(v) for v in losses) or min(num_pos) <= 0:
+        raise AssertionError("train losses {} num_pos {}".format(losses,
+                                                                 num_pos))
+    split = stage_split(step, state, images, boxes, labels, split_iters)
+    result = {"phase": "train", "dtype": "bfloat16", "batch": BATCH,
+              "warmup_steps": warmup, "steps": steps,
+              "images_per_s": BATCH * 1e3 / ms, "ms_per_step": ms,
+              "host_ms_per_step": 1e3 * host_s / steps,
+              "split_ms": split, "split_sum_ms": sum(split.values()),
+              "split_steps": split_iters, "max_memory_allocated": peak,
+              "losses": losses, "num_pos": num_pos, "all_finite": True,
+              "launches": launches, "step": state.step,
+              "nvidia_smi": power_limit()}
+    emit(result)
+    return result
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want||; 0 when they are equal, inf when only
+    ``want`` is 0."""
+    diff = float((got - want).norm())
+    return 0.0 if diff == 0.0 else diff / float(want.norm())
+
+
+# SSD300's prior scales (MIN_SIZES / 300) and the side of each scale's map
+PRIOR_SCALES = ((0.1, 38), (0.2, 19), (0.37, 10), (0.54, 5), (0.71, 3),
+                (0.88, 1))
+
+
+def parity_batch(batch, seed=1):
+    """Images like photographs (smooth seeded colour fields with mild
+    noise, uint8 BGR) and, in each, one GT box for each prior scale,
+    centred on a cell of that scale's map, so that every head and every
+    extra layer gets a gradient."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:300, 0:300] / 300.0
+    images = np.empty((batch, 300, 300, 3), np.float64)
+    boxes = torch.zeros(batch, 60, 4)
+    labels = torch.full((batch, 60), -1, dtype=torch.int32)
+    for b in range(batch):
+        for c in range(3):
+            a = rng.uniform(-1, 1, 5)
+            images[b, :, :, c] = (128 + 60 * np.sin(3 * a[0] * xx + 2 * a[1]
+                                                    * yy + a[2])
+                                  + 40 * np.cos(4 * a[3] * xx * yy + a[4]))
+        images[b] += rng.normal(0, 2, (300, 300, 3))
+        for i, (side, n) in enumerate(PRIOR_SCALES):
+            cx = ((b * 7 + i * 3) % n + 0.5) / n
+            cy = (((b + 1) * 5 + i) % n + 0.5) / n
+            stretch = 1.0 + 0.15 * (b - 0.5)
+            w, h = side * stretch, side / stretch
+            boxes[b, i] = torch.tensor([cx - w / 2, cy - h / 2, cx + w / 2,
+                                        cy + h / 2]).clamp(0.0, 1.0)
+            labels[b, i] = (3 * i + b) % 20
+    images = torch.from_numpy(np.clip(images, 0, 255).astype(np.uint8))
+    return images, boxes, labels
+
+
+def relu_masks(model):
+    """{conv name: bool mask of its ReLU's positive outputs}, filled by
+    each forward of ``model``."""
+    masks = {}
+    for name, mod in model.named_modules():
+        if getattr(mod, "relu", False) is True:
+            mod.register_forward_hook(
+                lambda m, i, o, name=name: masks.__setitem__(
+                    name, (o > 0).cpu()))
+    return masks
+
+
+def parity_step(device, dtype, weights, batch, params):
+    """One train step from ``weights``: (loss, num_pos, ReLU masks, names
+    of the tensors without a gradient, {name: update in float64})."""
+    images, boxes, labels = batch
+    cfg = train_cfg(dtype)
+    cfg.TRAIN.OPTIMIZER.LR = 1e-3  # the default
+    state, priors = create_train_state(cfg, device, seed=0)
+    state.model.load_state_dict(weights)
+    masks = relu_masks(state.model)
+    step = make_train_step(priors, cfg)
+    before = {k: v.detach().clone()
+              for k, v in state.model.state_dict().items()}
+    m = step(state, images, boxes, labels, aug_params=params)
+    after = state.model.state_dict()
+    no_grad = [k for k, p in state.model.named_parameters()
+               if p.grad is None or not bool(p.grad.any())]
+    return (float(m["loss"]), int(m["num_pos"]), masks, no_grad,
+            {k: (after[k] - before[k]).double().cpu() for k in before})
+
+
+def phase_train_parity(batch=2, tol=1e-3, cudnn_limit=5e-3):
+    """One float32 step (TF32 off) on the card and on the CPU from the same
+    weights (:func:`random_state_dict`), batch and augmentation
+    parameters; beside them the same step on the CPU with the convs in
+    float64, the exact answer.
+
+    The card takes the step twice: as the train path runs it, with
+    cuDNN's convs, and with cuDNN off (PyTorch's own CUDA convs, GEMMs).
+    Every tensor must get a gradient in the float64 step (an update of
+    weight decay alone would match trivially). Each card update is held
+    to the CPU's, tensor by tensor, in relative L2: within ``tol`` with
+    cuDNN off, within ``cudnn_limit`` with cuDNN, whose float32 conv
+    algorithms round more (PERF.md: the card 1.7e-3 from float64 with
+    cuDNN, 5.4e-4 without, the CPU 7.4e-4). ``cudnn_limit`` was set from
+    the readings of the runs before this batch (4.86e-3 on uint8 noise).
+    The ReLU outputs whose sign differs between two float32 forwards are
+    counted: each such flip moves the early convs' updates by ~1e-4 to
+    ~1e-3.
+    """
+    data = parity_batch(batch)
+    params = draw_params(batch, torch.Generator().manual_seed(5))
+    weights = random_state_dict(seed=0)
+    runs = {"cpu_f64": parity_step("cpu", "float64", weights, data, params),
+            "cpu": parity_step("cpu", "float32", weights, data, params)}
+    runs["card"] = parity_step("cuda", "float32", weights, data, params)
+    with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        runs["card_no_cudnn"] = parity_step("cuda", "float32", weights,
+                                            data, params)
+    cpu, exact = runs["cpu"], runs["cpu_f64"]
+
+    def flips(a, b):
+        return sum(int((a[2][k] != b[2][k]).sum()) for k in b[2])
+
+    result = {"phase": "train_parity", "dtype": "float32", "tf32": False,
+              "batch": batch, "images": "smooth fields + noise std 2",
+              "gt_per_image": len(PRIOR_SCALES), "tensors": len(exact[4]),
+              "no_grad_f64": exact[3], "loss_cpu": cpu[0],
+              "loss_cpu_f64": exact[0], "num_pos_cpu": cpu[1],
+              "max_cpu_vs_f64": max(rel_l2(cpu[4][k], v)
+                                    for k, v in exact[4].items()),
+              "relu_flips_cpu_vs_f64": flips(cpu, exact), "failing": []}
+    for name, limit in (("card", cudnn_limit), ("card_no_cudnn", tol)):
+        run = runs[name]
+        vs_cpu = {k: rel_l2(run[4][k], v) for k, v in cpu[4].items()}
+        worst = max(vs_cpu, key=vs_cpu.get)
+        result[name] = {
+            "limit": limit, "loss": run[0], "num_pos": run[1],
+            "max_vs_cpu": vs_cpu[worst], "worst": worst,
+            "within_1e-3": sum(v <= tol for v in vs_cpu.values()),
+            "over_1e-3": sorted(k for k, v in vs_cpu.items() if v > tol),
+            "max_vs_f64": max(rel_l2(run[4][k], v)
+                              for k, v in exact[4].items()),
+            "relu_flips_vs_cpu": flips(run, cpu),
+            "relu_flips_vs_f64": flips(run, exact),
+            "rel_l2_vs_cpu": vs_cpu}
+        result["failing"] += ["{} {}".format(name, k)
+                              for k, v in vs_cpu.items() if not v <= limit]
+        if run[1] != cpu[1] or not math.isclose(run[0], cpu[0],
+                                                rel_tol=1e-4):
+            result["failing"].append("{} loss {} num_pos {}".format(
+                name, run[0], run[1]))
+    emit(result)
+    if exact[3] or len(exact[4]) != 71:
+        raise AssertionError("tensors without a gradient in the float64 "
+                             "step: {}".format(exact[3]))
+    if result["failing"]:
+        raise AssertionError("card step off the CPU's: {}".format(
+            result["failing"]))
+    return result
+
+
+def write_voc_tree(root, sets, seed=0, size=300):
+    """A seeded VOC tree under ``root``: for each (set name, count), that
+    many uint8 images of noise with 1-3 solid class-coloured boxes, their
+    XML and the ImageSets list. Returns {image path: image}, the images
+    the reader serves (no JPEG is written: the port has no decoder)."""
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(30, 255, (len(VOC_CLASSES), 3))
+    base = os.path.join(root, "VOC2007")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
+                                                            "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    images, n = {}, 0
+    for setname, count in sets:
+        ids = []
+        for _ in range(count):
+            img_id = "%06d" % n
+            n += 1
+            ids.append(img_id)
+            img = rng.randint(0, 255, (size, size, 3)).astype(np.uint8)
+            objs = []
+            for _ in range(rng.randint(1, 4)):
+                x1, y1 = rng.randint(0, size - 60, 2)
+                x2 = rng.randint(x1 + 30, min(x1 + size // 2, size))
+                y2 = rng.randint(y1 + 30, min(y1 + size // 2, size))
+                cls = rng.randint(len(VOC_CLASSES))
+                img[y1:y2, x1:x2] = palette[cls]
+                objs.append(
+                    "<object><name>{}</name><difficult>0</difficult>"
+                    "<bndbox><xmin>{}</xmin><ymin>{}</ymin><xmax>{}</xmax>"
+                    "<ymax>{}</ymax></bndbox></object>".format(
+                        VOC_CLASSES[cls], x1 + 1, y1 + 1, x2, y2))
+            images[os.path.join(base, "JPEGImages", img_id + ".jpg")] = img
+            with open(os.path.join(base, "Annotations", img_id + ".xml"),
+                      "w") as f:
+                f.write("<annotation><size><width>{0}</width><height>{0}"
+                        "</height><depth>3</depth></size>{1}</annotation>"
+                        .format(size, "".join(objs)))
+        with open(os.path.join(base, "ImageSets", "Main", setname + ".txt"),
+                  "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return images
+
+
+def phase_fit(n_train=64, n_test=64):
+    """Two fit() runs on a seeded VOC tree: 4 steps from a --basenet npz
+    (save at 2 and 4, validate at 4), then an auto-resume to 6 (save and
+    validate at 6)."""
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_fit_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        images = write_voc_tree(os.path.join(work, "voc"),
+                                (("trainval", n_train), ("test", n_test)))
+        cfg = train_cfg("bfloat16")
+        cfg.DATASET.TEST_SETS = (("2007", "test"),)
+        cfg.TRAIN.SAVE_ITER = 2
+        cfg.TRAIN.EVAL_ITER = 4
+        cfg.TRAIN.LOG_LOSS_ITER = 1
+        # the basenet: the conv1_1 of the seeded weights the serving path
+        # uses, so the boxes stay finite (infer.random_state_dict)
+        w = random_state_dict(cfg, seed=0)["backbone.conv1_1.conv.weight"]
+        basenet = os.path.join(work, "basenet.npz")
+        np.savez(basenet, **{"backbone/conv1_1/conv/kernel":
+                             w.permute(2, 3, 1, 0).numpy()})
+        root = os.path.join(work, "voc")
+
+        def loaders():
+            train = DetLoader(
+                VOCDetection(root, (("2007", "trainval"),),
+                             reader=images.get),
+                NetworkInput((300, 300)), BATCH, shuffle=True,
+                drop_last=True, num_workers=4)
+            test = DetLoader(
+                VOCDetection(root, cfg.DATASET.TEST_SETS, reader=images.get),
+                NetworkInput((300, 300)), BATCH, num_workers=4)
+            return train, EvalVOC(test, cfg, os.path.join(work, "out",
+                                                          "eval"))
+
+        out_dir = os.path.join(work, "out")
+        eval_batches = -(-n_test // BATCH)
+        runs = []
+        for max_iter, kw in ((4, {"basenet": basenet}),
+                             (6, {"auto_resume": True})):
+            cfg.TRAIN.MAX_ITER = max_iter
+            reset_counts()
+            t0 = time.perf_counter()
+            res = fit(cfg, *loaders(), out_dir, device="cuda", **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            run = {"max_iter": max_iter, **{k: str(v) if k == "basenet"
+                                            else v for k, v in kw.items()},
+                   "seconds": seconds, "step": res["step"],
+                   "evals": res["evals"], "ckpt_steps": res["ckpt_steps"],
+                   "losses": res["losses"], "launches": launches,
+                   "eval_batches": eval_batches * len(res["evals"])}
+            runs.append(run)
+            if launches["nms_rows"] < run["eval_batches"] \
+                    or launches["nms_mask"] != 0:
+                raise AssertionError("fit made NMS launches {} for {} eval "
+                                     "batches".format(launches,
+                                                      run["eval_batches"]))
+            for e in res["evals"]:
+                if not 0.0 <= e["mAP"] <= 1.0 or e["dropped"] < 0:
+                    raise AssertionError("fit eval {}".format(e))
+            if not all(math.isfinite(m["loss"]) and m["num_pos"] > 0
+                       for m in res["losses"]):
+                raise AssertionError("fit losses {}".format(res["losses"]))
+        first, second = runs
+        if first["ckpt_steps"] != [2, 4] or second["ckpt_steps"] \
+                != [2, 4, 6] or second["step"] != 6 \
+                or [e["step"] for e in first["evals"]] != [4] \
+                or [e["step"] for e in second["evals"]] != [6] \
+                or second["losses"][0]["step"] != 5:
+            raise AssertionError("fit runs {}".format(runs))
+        result = {"phase": "fit", "dtype": "bfloat16", "batch": BATCH,
+                  "train_images": n_train, "test_images": n_test,
+                  "runs": runs, "nms_rows_launches": sum(
+                      r["launches"]["nms_rows"] for r in runs),
+                  "eval_batches": sum(r["eval_batches"] for r in runs)}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     info, _ = phase_device()
     ptxas = phase_build()
@@ -558,13 +955,24 @@ def main():
     mask, rows = phase_kernel(priors, ptxas)
     bf16 = phase_main_path("bfloat16")
     phase_main_path("float32")
+    train = phase_train()
+    phase_train_parity()
+    fitted = phase_fit()
     # each entry's count from the run of the path that reaches it, in
-    # bfloat16: the serving path for nms_rows, DetectOut for nms_mask
+    # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
+    # beside it, the counts on every path of the run
     mask["launches"] = bf16["dense"]["launches"]["nms_mask"]
     mask["path"] = "DetectOut (dense contract), {} calls".format(
         bf16["dense"]["calls"])
     rows["launches"] = bf16["launches"]["nms_rows"]
     rows["path"] = "Detector (serving), {} batches".format(bf16["batches"])
+    for entry in (mask, rows):
+        name = entry["name"]
+        entry["launches_by_path"] = {
+            "serving": bf16["launches"][name],
+            "DetectOut": bf16["dense"]["launches"][name],
+            "train_step": train["launches"][name],
+            "fit": sum(r["launches"][name] for r in fitted["runs"])}
     emit({"kernels": [mask, rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -1,0 +1,120 @@
+"""The evaluator: run the eval step over a loader and score VOC mAP.
+
+Counterpart of ``odtpu/eval/evaluator.py`` ``EvalBase.validate`` and
+``EvalVOC`` (COCO and the multi-host gather wait for their slices). The
+eval step is ``step(images) -> {"rows": [B, R, 6], "dropped": [B]}``
+(``odtpu_torch.eval_step``); the rows' boxes are scaled from [0, 1] to
+each image's original pixels by the batch's ``extra`` (h, w, c), short
+last batches are padded to the loader's batch size, and a nonzero
+``dropped`` count (per-class survivors the row cap discarded) is
+reported in ``last_timing`` and as a warning.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+from ..data.loader import pad_batch_to
+from .voc_eval import evaluate_detections
+
+
+class EvalBase:
+    def __init__(self, data_loader, cfg, output_dir="eval_out"):
+        self.loader = data_loader
+        self.cfg = cfg
+        self.output_dir = output_dir
+        self.batch_size = data_loader.batch_size
+        self.last_timing = {}
+
+    def reset_results(self):
+        raise NotImplementedError
+
+    def accumulate(self, det, extra, ids, img_idx, indices=None):
+        raise NotImplementedError
+
+    def evaluate_stats(self):
+        raise NotImplementedError
+
+    def validate(self, eval_step):
+        """Run ``eval_step`` over the loader; returns (per-class results,
+        [mAP])."""
+        self.reset_results()
+        img_idx = 0
+        t_detect = 0.0
+        t0 = time.time()
+        n_images = 0
+        n_dropped = 0
+        for batch in self.loader:
+            batch, valid = pad_batch_to(batch, self.batch_size)
+            t1 = time.time()
+            out = eval_step(batch["images"])
+            det = out["rows"].cpu().numpy()[:valid].copy()
+            n_dropped += int(out["dropped"].cpu().numpy()[:valid].sum())
+            t_detect += time.time() - t1
+            # normalized boxes (columns 1-4) -> original pixels
+            h = batch["extra"][:valid, 0].reshape(valid, 1)
+            w = batch["extra"][:valid, 1].reshape(valid, 1)
+            det[..., 1] *= w
+            det[..., 3] *= w
+            det[..., 2] *= h
+            det[..., 4] *= h
+            indices = batch.get("indices")
+            if indices is not None:
+                indices = indices[:valid]
+            img_idx = self.accumulate(det, batch["extra"][:valid],
+                                      batch["ids"][:valid], img_idx,
+                                      indices=indices)
+            n_images += valid
+        total = time.time() - t0
+        self.last_timing = {"detect_s": t_detect, "total_s": total,
+                            "images": n_images,
+                            "ips": n_images / max(total, 1e-9),
+                            "dropped_dets": n_dropped}
+        if n_dropped:
+            cap = int(self.cfg.EVAL.COMPACT_ROWS) or int(self.cfg.EVAL.TOP_K)
+            print("WARNING: the eval rows dropped {} detections beyond the "
+                  "{}-per-image cross-class cap; raise EVAL.COMPACT_ROWS"
+                  .format(n_dropped, cap), file=sys.stderr)
+        return self.evaluate_stats()
+
+
+class EvalVOC(EvalBase):
+    def __init__(self, data_loader, cfg, output_dir="eval_out"):
+        super().__init__(data_loader, cfg, output_dir)
+        if cfg.DATASET.NUM_EVAL_PICS > 0:
+            raise ValueError("NUM_EVAL_PICS subsetting is not supported for "
+                             "VOC (reference evaluate_utils.py:119)")
+        self.test_set = cfg.DATASET.TEST_SETS[0][1]
+        self.num_classes = cfg.MODEL.NUM_CLASSES
+
+    def reset_results(self):
+        n = self.loader.num_items
+        self.results = [[np.zeros((0, 5), np.float32) for _ in range(n)]
+                        for _ in range(self.num_classes)]
+
+    def accumulate(self, det, extra, ids, img_idx, indices=None):
+        # det [V, N, 6] rows = score, x1, y1, x2, y2, cls (pixels);
+        # indices = the images' positions in the dataset
+        for b in range(det.shape[0]):
+            pos = int(indices[b]) if indices is not None else img_idx
+            rows = det[b]
+            rows = rows[rows[:, 0] > 0]
+            for cls in range(1, self.num_classes):
+                r = rows[rows[:, 5] == cls]
+                if r.size == 0:
+                    continue
+                # -> x1, y1, x2, y2, score
+                self.results[cls][pos] = np.ascontiguousarray(
+                    r[:, [1, 2, 3, 4, 0]], np.float32)
+            img_idx += 1
+        return img_idx
+
+    def evaluate_stats(self):
+        res, mAP = evaluate_detections(
+            self.results, self.loader.dataset, self.output_dir,
+            test_set=self.test_set,
+            use_07_metric=bool(self.cfg.EVAL.USE_07_METRIC))
+        return res, [mAP]

@@ -10,6 +10,7 @@ reference keeps every survivor, so nonzero marks a deviation).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -50,7 +51,12 @@ class EvalStep:
         rows = _compact(dense, self.rows_cap)
         return {"rows": rows, "dropped": dropped(dense, rows)}
 
-    def __call__(self, images: Tensor) -> dict:
+    def __call__(self, images) -> dict:
+        """uint8 BGR [B, H, W, 3] images, numpy or a tensor on any device
+        (moved to the step's) -> rows and ``dropped`` on the device."""
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        images = images.to(self.priors.device, non_blocking=True)
         return self.detect(*self.forward(images))
 
 

@@ -27,13 +27,33 @@ from .utils.checkpoint import load_odtpu_npz
 from .utils.config import default_cfg
 
 
+# conv1_1 of :func:`random_state_dict` is divided by this: the input
+# arrives at raw pixel scale (mean-subtracted uint8, std ~70), and at
+# odtpu's init the random loc head reaches |loc| ~ 1000 at full width,
+# where exp(0.2 * loc) in decode overflows float32 and the boxes turn
+# inf/NaN
+RANDOM_INPUT_SCALE = 64.0
+
+
+def random_state_dict(cfg=None, seed: int = 0) -> dict:
+    """Seeded random SSD300 weights that serve finite boxes: the model's
+    init (:func:`odtpu_torch.models.init_weights`) with conv1_1 divided by
+    :data:`RANDOM_INPUT_SCALE`. On the CPU."""
+    cfg = default_cfg() if cfg is None else cfg
+    model, _, _ = model_factory("eval", cfg, "cpu", seed)
+    state = model.state_dict()
+    state["backbone.conv1_1.conv.weight"] /= RANDOM_INPUT_SCALE
+    return state
+
+
 class Detector:
     """SSD300-VGG16 detector on one device.
 
-    Weights come from ``state_dict`` (see
-    :func:`odtpu_torch.utils.checkpoint.from_odtpu_params`), else from a
-    seeded random init. ``detector(images)`` takes uint8 BGR [B, H, W, 3]
-    (numpy or tensor) and returns ``{"rows", "dropped"}`` on the device.
+    Weights come from ``state_dict`` as given (see
+    :func:`odtpu_torch.utils.checkpoint.from_odtpu_params` and
+    :func:`random_state_dict`), else from the model's seeded init.
+    ``detector(images)`` takes uint8 BGR [B, H, W, 3] (numpy or tensor)
+    and returns ``{"rows", "dropped"}`` on the device.
     """
 
     def __init__(self, cfg=None, state_dict=None, device="cuda", seed=0):
@@ -51,9 +71,7 @@ class Detector:
         self.step = make_eval_step(model, priors, self.cfg)
 
     def __call__(self, images) -> dict:
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
-        return self.step(images.to(self.device, non_blocking=True))
+        return self.step(images)
 
 
 def power_limit() -> str:
@@ -78,15 +96,16 @@ def main(argv=None):
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--npz", default="",
-                    help="odtpu SSD300 checkpoint; default: seeded weights")
+                    help="odtpu SSD300 checkpoint; default: random_state_dict(seed)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
-    state_dict = load_odtpu_npz(args.npz) if args.npz else None
-    det = Detector(state_dict=state_dict, device=device, seed=args.seed)
+    state_dict = (load_odtpu_npz(args.npz) if args.npz
+                  else random_state_dict(seed=args.seed))
+    det = Detector(state_dict=state_dict, device=device)
     images = torch.from_numpy(random_images(
         args.batch, det.cfg.MODEL.IMAGE_SIZE, args.seed)).to(device)
 

@@ -1,0 +1,116 @@
+"""The SSD multibox loss: smooth-L1 on positives plus mined softmax CE.
+
+Counterpart of ``odtpu/layers/losses.py`` ``smooth_l1``,
+``multibox_targets``, ``multibox_loss``, ``mined_multibox`` and
+``MultiBoxLoss`` (``refinedet_loss``, ``focal_loss`` and
+``repulsion_loss`` wait for their slices). The sums are unnormalized and
+come with the positive count, so the train step divides by the whole
+batch's N.
+
+Hard negative mining keeps ``odtpu``'s rank rule: a stable descending
+sort of the negatives' CE (positives count 0), and a negative is mined
+when its rank is below ``min(neg_pos_ratio * num_pos, P - 1)``. The rank
+is the sort's inverse permutation, made by a scatter (a permutation has
+no duplicate indices, so the scatter is exact on any device).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from ..ops.matching import match_batch
+
+
+class MultiBoxLossOutput(NamedTuple):
+    loss_loc_sum: Tensor   # scalar, unnormalized smooth-L1 over positives
+    loss_conf_sum: Tensor  # scalar, unnormalized mined CE
+    num_pos: Tensor        # scalar int, positives in the batch
+
+
+def smooth_l1(x: Tensor) -> Tensor:
+    """Elementwise smooth-L1 (beta = 1), summed by callers."""
+    ax = x.abs()
+    return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
+
+
+def multibox_targets(gt_boxes: Tensor, gt_labels: Tensor, priors: Tensor,
+                     variances, overlap_thresh: float):
+    """Batched matching: [B, G, 4], [B, G] -> (loc_t [B, P, 4], conf_t
+    [B, P]), outside the autograd graph."""
+    loc_t, conf_t, _ = match_batch(gt_boxes, gt_labels, priors, variances,
+                                   overlap_thresh)
+    return loc_t, conf_t
+
+
+def mining_masks(ce: Tensor, conf_t: Tensor,
+                 neg_pos_ratio: int = 3) -> tuple[Tensor, Tensor]:
+    """Positive and mined-negative masks [B, P] from the per-prior CE."""
+    P = ce.shape[1]
+    pos = conf_t > 0
+    num_pos = pos.sum(1)
+    ce_neg = torch.where(pos, 0.0, ce.detach())
+    loss_idx = torch.argsort(-ce_neg, dim=1, stable=True)
+    rank = torch.empty_like(loss_idx).scatter_(
+        1, loss_idx, torch.arange(P, device=ce.device).expand_as(loss_idx))
+    num_neg = torch.clamp(neg_pos_ratio * num_pos, max=P - 1)
+    neg = (rank < num_neg[:, None]) & ~pos
+    return pos, neg
+
+
+def mined_multibox(loc_pred: Tensor, conf_pred: Tensor, loc_t: Tensor,
+                   conf_t: Tensor, neg_pos_ratio: int = 3
+                   ) -> MultiBoxLossOutput:
+    """Smooth-L1 + hard-negative-mined CE from precomputed targets, in
+    float32 whatever the predictions' dtype."""
+    logits = conf_pred.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # the target's logit by a gather: the value odtpu's one-hot reduce
+    # computes (its reduce is a TPU workaround)
+    tgt = torch.where(conf_t > 0, conf_t, 0)
+    ce = lse - torch.gather(logits, -1, tgt[..., None])[..., 0]
+    pos, neg = mining_masks(ce, conf_t, neg_pos_ratio)
+
+    loc_err = smooth_l1(loc_pred.float() - loc_t)
+    loss_l = torch.where(pos[..., None], loc_err, 0.0).sum()
+    loss_c = torch.where(pos | neg, ce, 0.0).sum()
+    return MultiBoxLossOutput(loss_l, loss_c, pos.sum())
+
+
+def multibox_loss(loc_pred: Tensor, conf_pred: Tensor, priors: Tensor,
+                  gt_boxes: Tensor, gt_labels: Tensor, variances,
+                  overlap_thresh: float = 0.5, neg_pos_ratio: int = 3
+                  ) -> MultiBoxLossOutput:
+    """SSD loss, unnormalized.
+
+    Args:
+        loc_pred:  [B, P, 4] raw loc predictions.
+        conf_pred: [B, P, C] raw class logits.
+        priors:    [P, 4] center-size priors.
+        gt_boxes:  [B, G, 4] point-form GT, padded.
+        gt_labels: [B, G] labels in [0, C-2]; < 0 marks padding.
+    """
+    loc_t, conf_t = multibox_targets(gt_boxes, gt_labels, priors, variances,
+                                     overlap_thresh)
+    return mined_multibox(loc_pred, conf_pred, loc_t, conf_t, neg_pos_ratio)
+
+
+class MultiBoxLoss:
+    """The reference's call contract: ``MultiBoxLoss(cfg)((loc, conf,
+    priors), (boxes, labels))`` -> (loss_l, loss_c), each divided by the
+    positive count (at least 1)."""
+
+    def __init__(self, cfg):
+        self.variance = tuple(float(v) for v in cfg.MODEL.VARIANCE)
+        self.threshold = float(cfg.LOSS.OVERLAP_THRESH)
+        self.negpos_ratio = int(cfg.LOSS.NEG_POS_RATIO)
+
+    def __call__(self, predictions, targets):
+        loc, conf, priors = predictions
+        boxes, labels = targets
+        out = multibox_loss(loc, conf, priors, boxes, labels, self.variance,
+                            self.threshold, self.negpos_ratio)
+        n = torch.clamp(out.num_pos, min=1).float()
+        return out.loss_loc_sum / n, out.loss_conf_sum / n

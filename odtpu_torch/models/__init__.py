@@ -24,7 +24,9 @@ __all__ = ["SSD", "VGG16", "L2Norm", "MultiBoxHead", "EXTRAS_SPEC",
 _NOT_PORTED = {"SSD_COCO", "FPN", "FSSD", "RFBNet", "DRN_SSD", "RefineDet",
                "drn_d_22", "drn_d_24"}
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float64 is the numerical reference that float32 runs are held to
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -78,18 +80,17 @@ def probe_layer_dims(cfg) -> list[tuple[int, int]]:
     return [(int(s.shape[2]), int(s.shape[3])) for s in sources]
 
 
-# conv1_1's He std is divided by this: the input arrives at raw pixel
-# scale (mean-subtracted uint8, std ~70), and without the cut the random
-# loc head reaches |loc| ~ 700 at full width, so exp(0.2 * loc) in decode
-# overflows float32 and the boxes turn inf/NaN
-_INPUT_SCALE = 64.0
+# flax's truncated normals are cut at 2 std and scaled up by 1 / this,
+# so the truncated draw keeps the variance asked for
+_TRUNC_STD = 0.87962566103423978
 
 
 def init_weights(model: SSD, seed: int = 0) -> SSD:
     """Seeded random init on the CPU, so every device gets the same
-    weights: He-normal convs with zero bias (conv1_1 scaled to unit-scale
-    activations), Xavier-uniform heads (reference train.py:227-234),
-    L2Norm scale 20."""
+    weights, from ``odtpu``'s distributions: the trunk and extras
+    truncated He-normal (flax's ``he_normal``, ``odtpu``'s ``Conv``
+    default, ``odtpu/models/common.py:155``), the heads xavier-uniform
+    (``odtpu/models/ssd.py:75,78``), zero biases, L2Norm scale 20."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -101,10 +102,9 @@ def init_weights(model: SSD, seed: int = 0) -> SSD:
                 a = (6.0 / (fan_in + fan_out * rf)) ** 0.5
                 m.weight.uniform_(-a, a, generator=g)
             else:
-                std = (2.0 / fan_in) ** 0.5
-                if name == "backbone.conv1_1.conv":
-                    std /= _INPUT_SCALE
-                m.weight.normal_(0.0, std, generator=g)
+                std = (2.0 / fan_in) ** 0.5 / _TRUNC_STD
+                torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                            2.0 * std, generator=g)
             m.bias.zero_()
         model.l2norm.scale.fill_(20.0)
     return model

@@ -39,8 +39,9 @@ class Conv(nn.Module):
 class L2Norm(nn.Module):
     """Channelwise L2 normalization with a learned per-channel scale.
 
-    The norm is computed in float32 and eps is added after the sqrt
-    (``odtpu`` common.py:104-111; reference l2norm.py:6, scale init 20).
+    The norm is computed in float32 (or wider) and eps is added after the
+    sqrt (``odtpu`` common.py:104-111; reference l2norm.py:6, scale init
+    20).
     """
 
     def __init__(self, channels: int, scale_init: float = 20.0,
@@ -51,7 +52,7 @@ class L2Norm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         norm = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True)) + self.eps
         out = xf / norm * self.scale[None, :, None, None]
         return out.to(self.dtype)

@@ -160,7 +160,11 @@ def nms_mask_plain(boxes: Tensor, scores: Tensor, iou_thresh: float,
 
 def nms_mask(boxes: Tensor, scores: Tensor, iou_thresh: float,
              score_thresh: float = 0.0) -> Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors.
+
+    Takes candidates already sorted by score ([N, K, 4], [N, K]), as the
+    Pallas kernel does; :func:`odtpu_torch.ops.nms.nms_mask` is the
+    counterpart of ``odtpu.ops.nms.nms_mask`` and sorts first."""
     if boxes.is_cuda:
         return nms_mask_cuda(boxes, scores, iou_thresh, score_thresh)
     if boxes.device.type != "cpu":

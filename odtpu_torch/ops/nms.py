@@ -1,6 +1,6 @@
 """Fixed-shape greedy NMS in plain torch.
 
-Counterpart of ``odtpu/ops/nms.py`` (lines 32-103), the reference's
+Counterpart of ``odtpu/ops/nms.py``, the reference's
 greedy while-loop (lib/layers/box_utils.py:279) restated as a fixed
 program: take the top-k candidates by score, build the [K, K] IoU matrix
 once, then run K sequential mask updates in which a live candidate kills
@@ -85,3 +85,26 @@ def nms(boxes: Tensor, scores: Tensor, iou_thresh: float, top_k: int = 200,
     """
     rows, count = nms_rows(boxes, scores, iou_thresh, top_k, score_thresh)
     return rows[..., 1:], rows[..., 0], count
+
+
+def nms_mask(boxes: Tensor, scores: Tensor, iou_thresh: float,
+             score_thresh: float = 0.0) -> Tensor:
+    """Greedy-NMS alive mask of UNSORTED candidates, aligned with them.
+
+    [..., N, 4], [..., N] -> bool [..., N]: a stable descending argsort,
+    the greedy mask on the sorted candidates, then the inverse
+    permutation (``odtpu.ops.nms.nms_mask``). Not to be confused with
+    :func:`odtpu_torch.ops.cuda.nms_kernel.nms_mask`, which takes
+    candidates already sorted by score and returns their mask in that
+    order.
+    """
+    n = scores.shape[-1]
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    top_boxes = torch.gather(
+        boxes, -2, order[..., None].expand(*order.shape, 4))
+    top_scores = torch.gather(scores, -1, order)
+    alive_sorted = _greedy_mask(top_boxes, top_scores, iou_thresh,
+                                score_thresh)
+    inv = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(n, device=order.device).expand_as(order))
+    return torch.gather(alive_sorted, -1, inv)

@@ -1,4 +1,5 @@
-"""Carry ``odtpu`` weights across to the port.
+"""Carry ``odtpu`` weights across to the port, and the train loop's
+checkpoints.
 
 ``odtpu`` stores a model as a flat map of '/'-joined param paths
 (``odtpu/utils/checkpoint.py:146-164``): ``backbone/conv1_1/conv/kernel``
@@ -6,10 +7,17 @@
 and ``l2norm/scale`` (71 tensors for SSD300). The port's modules carry
 the same names with '.' joins, so the map is mechanical: kernels go
 HWIO -> OIHW and everything becomes float32.
+
+:class:`Checkpointer` is the counterpart of ``odtpu``'s orbax
+``Checkpointer``: ``torch.save`` of the model, the optimizer and the
+step, one file per step under the run's ``ckpt/`` directory, the newest
+``max_to_keep`` kept.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -17,6 +25,19 @@ import torch
 from torch import nn
 
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale"}
+
+
+def _to_port(key: str, value: np.ndarray):
+    """An odtpu '/'-joined param path and value -> (state-dict key, float32
+    tensor), or None when the leaf has no counterpart."""
+    *path, leaf = key.split("/")
+    if not path or leaf not in _LEAVES or key.startswith("__"):
+        return None
+    arr = np.array(value, dtype=np.float32)  # an owned copy
+    if leaf == "kernel":
+        arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return ".".join(path + [_LEAVES[leaf]]), torch.from_numpy(
+        np.ascontiguousarray(arr))
 
 
 def from_odtpu_params(flat: Mapping[str, np.ndarray],
@@ -29,15 +50,11 @@ def from_odtpu_params(flat: Mapping[str, np.ndarray],
     """
     out, unused = {}, []
     for key, value in flat.items():
-        *path, leaf = key.split("/")
-        if not path or leaf not in _LEAVES or key.startswith("__"):
+        mapped = _to_port(key, value)
+        if mapped is None:
             unused.append(key)
-            continue
-        arr = np.array(value, dtype=np.float32)  # an owned copy
-        if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        out[".".join(path + [_LEAVES[leaf]])] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        else:
+            out[mapped[0]] = mapped[1]
     if model is not None:
         want = model.state_dict()
         unused += [k for k in out if k not in want]
@@ -59,3 +76,129 @@ def load_odtpu_npz(path, model: nn.Module | None = None) -> dict:
     :func:`from_odtpu_params`)."""
     with np.load(path) as data:
         return from_odtpu_params({k: data[k] for k in data.files}, model)
+
+
+def _merge(model: nn.Module, pairs) -> tuple[list, list]:
+    """Load the (npz key, state-dict key, tensor) ``pairs`` whose key and
+    shape match ``model``'s; returns (loaded, skipped) npz keys."""
+    want = model.state_dict()
+    loaded, skipped, sd = [], [], {}
+    for npz_key, key, value in pairs:
+        if key in want and want[key].shape == value.shape:
+            sd[key] = value
+            loaded.append(npz_key)
+        else:
+            skipped.append(npz_key)
+    model.load_state_dict(sd, strict=False)
+    return loaded, skipped
+
+
+def load_model_npz(model: nn.Module, path) -> tuple[list, list]:
+    """Partial load of a full-model npz ('/'-joined odtpu param paths) by
+    path and shape into ``model``; the rest keeps its init (``odtpu``'s
+    ``load_model_npz``). ``__batch_stats__/`` keys are not params and are
+    skipped. Returns (loaded, skipped) npz keys."""
+    pairs, skipped = [], []
+    with np.load(path) as data:
+        for k in data.files:
+            if k.startswith("__batch_stats__/"):
+                continue
+            mapped = _to_port(k, data[k])
+            if mapped is None:
+                skipped.append(k)
+            else:
+                pairs.append((k, *mapped))
+    loaded, more = _merge(model, pairs)
+    return loaded, skipped + more
+
+
+def load_backbone_npz(model: nn.Module, path) -> tuple[list, list]:
+    """Partial load of converted backbone weights (keys '<conv>/kernel'
+    HWIO and '<conv>/bias') into ``model.backbone``; the rest keeps its
+    init (``odtpu``'s ``load_backbone_npz``). Returns (loaded, skipped)
+    npz keys."""
+    pairs, skipped = [], []
+    with np.load(path) as data:
+        for k in data.files:
+            name, _, leaf = k.rpartition("/")
+            mapped = _to_port("/".join(["backbone", name, "conv", leaf]),
+                              data[k]) if name else None
+            if mapped is None:
+                skipped.append(k)
+            else:
+                pairs.append((k, *mapped))
+    loaded, more = _merge(model, pairs)
+    return loaded, skipped + more
+
+
+def load_basenet(model: nn.Module, path) -> tuple[str, list, list]:
+    """``--basenet``: pick the scheme from the keys (full-model paths have
+    three or more segments, backbone keys two), load, and refuse an npz
+    that matches nothing (``train.py:151-185``). Returns (scheme, loaded,
+    skipped)."""
+    with np.load(path) as data:
+        keys = list(data.files)
+    full_path = sum(len(k.split("/")) >= 3 for k in keys) > len(keys) // 2
+    scheme = "full-path" if full_path else "backbone"
+    loader = load_model_npz if full_path else load_backbone_npz
+    loaded, skipped = loader(model, path)
+    if not loaded:
+        raise ValueError("--basenet {} matched no parameters (detected {} "
+                         "scheme; sample npz keys: {})".format(
+                             path, scheme, ", ".join(skipped[:5])))
+    return scheme, loaded, skipped
+
+
+class Checkpointer:
+    """``save(step, state)``, ``latest_step()`` and ``restore(state)`` for
+    a :class:`odtpu_torch.train_step.TrainState`, one ``<step>.pt`` file a
+    step in ``directory``; the newest ``max_to_keep`` are kept."""
+
+    def __init__(self, directory, max_to_keep: int = 5):
+        self.directory = Path(directory).resolve()
+        self.max_to_keep = int(max_to_keep)
+
+    def path(self, step: int) -> Path:
+        return self.directory / "{}.pt".format(int(step))
+
+    def all_steps(self) -> list[int]:
+        if not self.directory.is_dir():
+            return []
+        return sorted(int(p.stem) for p in self.directory.glob("*.pt")
+                      if p.stem.isdigit())
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, force: bool = False) -> bool:
+        """Write ``state`` as step ``step``; a step already on disk is
+        kept unless ``force``. Returns whether it wrote."""
+        step = int(step)
+        path = self.path(step)
+        if path.is_file() and not force:
+            return False
+        self.directory.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".pt.{}.tmp".format(os.getpid()))
+        torch.save({"step": int(state.step),
+                    "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict()}, tmp)
+        os.replace(tmp, path)  # a reader sees the old file or the new one
+        for old in self.all_steps()[:-self.max_to_keep]:
+            self.path(old).unlink(missing_ok=True)
+        return True
+
+    def restore(self, state, step: int | None = None):
+        """Load step ``step`` (default: the latest) into ``state`` in place
+        and return it."""
+        step = self.latest_step() if step is None else int(step)
+        if step is None:
+            raise FileNotFoundError(
+                "no checkpoint found under {}".format(self.directory))
+        device = next(state.model.parameters()).device
+        data = torch.load(self.path(step), map_location=device,
+                          weights_only=True)
+        state.model.load_state_dict(data["model"], strict=True)
+        state.optimizer.load_state_dict(data["optimizer"])
+        state.step = int(data["step"])
+        return state

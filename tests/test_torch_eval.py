@@ -1,0 +1,305 @@
+"""The port's VOC data, loader, mAP, evaluator, checkpoints and train loop
+against the JAX package on the CPU.
+
+The VOC trees come from ``tests/synth.py`` ``make_voc`` (seeded images
+with class-coloured boxes, the data the flagship checkpoint was trained
+on). Tolerances, and why:
+- annotations, loader batches, AP and mAP from the same detections:
+  equal (abs 1e-9 for the mAP; the same float64 numpy arithmetic);
+- ``EvalVOC.validate`` with the flagship weights: mAP within 1e-4 (the
+  forward sums in another order in the two frameworks, so a score can
+  move in its last digits and two near-equal detections swap ranks);
+- the resumed train loop against the unbroken one: bit-equal.
+"""
+
+import os.path as osp
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odtpu.data import VOCDetection as JVOCDetection
+from odtpu.data import dataset_factory
+from odtpu.data import pad_batch_to as jpad_batch_to
+from odtpu.data.voc import parse_voc_xml as jparse_voc_xml
+from odtpu.eval import evaluator as jevaluator
+from odtpu.eval import voc_eval as jvoc_eval
+from odtpu.models import init_model, model_factory as jmodel_factory
+from odtpu.parallel import make_eval_step as jmake_eval_step
+from odtpu.utils.checkpoint import load_model_npz as jload_model_npz
+from odtpu.utils.config import default_cfg as jdefault_cfg
+
+from odtpu_torch.data.loader import DetLoader, NetworkInput, pad_batch_to
+from odtpu_torch.data.voc import VOCDetection, parse_voc_xml
+from odtpu_torch.eval import voc_eval
+from odtpu_torch.eval.evaluator import EvalVOC
+from odtpu_torch.eval_step import make_eval_step
+from odtpu_torch.models import model_factory
+from odtpu_torch.train import fit
+from odtpu_torch.train_step import create_train_state
+from odtpu_torch.utils import checkpoint
+from odtpu_torch.utils.config import default_cfg
+
+from synth import make_voc
+from test_torch_model import FLAGSHIP
+
+# the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
+# threads per worker only contend with the others (and with JAX)
+torch.set_num_threads(2)
+
+TEST_SETS = (("2007", "test"),)
+
+
+@pytest.fixture(scope="module")
+def voc(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("voc"))
+    make_voc(root, n_images=6, seed=3)
+    return root
+
+
+@pytest.fixture(scope="module")
+def voc2(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("voc2"))
+    make_voc(root, n_images=2, seed=5)
+    return root
+
+
+def _detections(rng, dataset, n_classes=21):
+    """Seeded detections near the GT boxes (and some far off), as the
+    evaluator's results[cls][img] = [N, 5] (x1, y1, x2, y2, score)."""
+    results = [[np.zeros((0, 5), np.float32) for _ in range(len(dataset))]
+               for _ in range(n_classes)]
+    for i in range(len(dataset)):
+        boxes, labels, _ = jparse_voc_xml(dataset.anno_path(i),
+                                          norm_box=False)
+        for box, label in zip(boxes, labels):
+            for cls in (label + 1, rng.randint(1, n_classes)):
+                n = rng.randint(1, 4)
+                jitter = rng.uniform(-15, 15, (n, 4))
+                score = rng.uniform(0.01, 1.0, (n, 1))
+                det = np.concatenate([box + jitter, score], 1)
+                results[cls][i] = np.concatenate(
+                    [results[cls][i], det]).astype(np.float32)
+    return results
+
+
+def test_voc_annotations_and_loader_match_odtpu(voc):
+    jds = JVOCDetection(voc, TEST_SETS)
+    ds = VOCDetection(voc, TEST_SETS, reader=cv2.imread)
+    assert ds.ids == jds.ids and len(ds) == 6
+    for i in range(len(ds)):
+        for a, b in zip(parse_voc_xml(ds.anno_path(i), keep_difficult=True),
+                        jparse_voc_xml(jds.anno_path(i), keep_difficult=True)):
+            np.testing.assert_array_equal(a, b)
+        got, want = ds[i], jds[i]
+        for k in ("image", "boxes", "labels", "extra"):
+            np.testing.assert_array_equal(got[k], want[k])
+    with pytest.raises(ValueError, match="reader"):
+        VOCDetection(voc, TEST_SETS)
+
+    jcfg = jdefault_cfg()
+    jcfg.DATASET.DATASET_DIR = voc
+    jcfg.DATASET.TEST_SETS = TEST_SETS
+    jcfg.DATASET.EVAL_BATCH_SIZE = 4
+    jloader = dataset_factory("eval", jcfg)
+    loader = DetLoader(ds, jloader.transform, batch_size=4, num_workers=2)
+    assert len(loader) == len(jloader) == 2
+    for got, want in zip(loader, jloader):
+        assert got["ids"] == want["ids"]
+        for k in ("images", "boxes", "labels", "extra", "indices"):
+            np.testing.assert_array_equal(got[k], want[k])
+        padded, valid = pad_batch_to(got, 4)
+        jpadded, jvalid = jpad_batch_to(want, 4)
+        assert valid == jvalid
+        for k in ("images", "boxes", "labels"):
+            np.testing.assert_array_equal(padded[k], jpadded[k])
+    # the pass-through transform refuses what it cannot resize
+    with pytest.raises(ValueError, match="cannot resize"):
+        NetworkInput((300, 300))(ds[0]["image"], None, None)
+
+
+@pytest.mark.parametrize("use_07", [True, False])
+def test_voc_ap_and_map_match_odtpu(voc, tmp_path, use_07):
+    rng = np.random.RandomState(4)
+    jds = JVOCDetection(voc, TEST_SETS)
+    ds = VOCDetection(voc, TEST_SETS, reader=cv2.imread)
+    results = _detections(rng, jds)
+    rec = np.sort(rng.uniform(0, 1, 30))
+    prec = rng.uniform(0, 1, 30)
+    assert voc_eval.voc_ap(rec, prec, use_07) == jvoc_eval.voc_ap(
+        rec, prec, use_07)
+    gt = {i: {"bbox": [[10, 10, 50, 60], [30, 30, 90, 80]],
+              "difficult": [0, 1]} for i in range(3)}
+    dets = [(i % 3, float(s), 12.0 + i, 11.0, 52.0, 58.0)
+            for i, s in enumerate(rng.uniform(0, 1, 7))]
+    for a, b in zip(voc_eval.eval_class(dets, gt, 0.5, use_07),
+                    jvoc_eval.eval_class(dets, gt, 0.5, use_07)):
+        np.testing.assert_array_equal(a, b)
+    got_res, got = voc_eval.evaluate_detections(
+        results, ds, str(tmp_path / "port"), use_07_metric=use_07)
+    want_res, want = jvoc_eval.evaluate_detections(
+        results, jds, str(tmp_path / "odtpu"), use_07_metric=use_07)
+    assert 0.05 < want < 1.0
+    assert abs(got - want) <= 1e-9
+    assert [r[1] for r in got_res] == [r[1] for r in want_res]
+    for name in ("det_test_dog.txt", "annots.pkl"):
+        assert osp.isfile(tmp_path / "port" / name)
+    with open(tmp_path / "port" / "det_test_dog.txt") as f, \
+            open(tmp_path / "odtpu" / "det_test_dog.txt") as g:
+        assert f.read() == g.read()
+
+
+def test_eval_voc_validate_with_flagship_weights_matches_odtpu(voc,
+                                                               tmp_path):
+    if not osp.isfile(FLAGSHIP):
+        pytest.skip("the flagship checkpoint is not in this checkout")
+    jcfg, cfg = jdefault_cfg(), default_cfg()
+    for c in (jcfg, cfg):
+        c.TPU.COMPUTE_DTYPE = "float32"
+        c.DATASET.TEST_SETS = TEST_SETS
+    jcfg.DATASET.DATASET_DIR = voc
+    jcfg.DATASET.EVAL_BATCH_SIZE = 4
+    jloader = dataset_factory("eval", jcfg)
+    jmodel, jpriors, _ = jmodel_factory("eval", jcfg)
+    params, loaded, _ = jload_model_npz(init_model(jmodel, jcfg)["params"],
+                                        FLAGSHIP)
+    assert len(loaded) == 71
+    jsolver = jevaluator.EvalVOC(jloader, jcfg, str(tmp_path / "odtpu"))
+    jstep = jmake_eval_step(jmodel, jpriors, jcfg)
+    # the step op by op (its raw_step), which skips a whole-graph compile
+    _, jmaps = jsolver.validate(
+        lambda p, b, x: jstep.raw_step(p, b, jstep.priors, jnp.asarray(x)),
+        params, {})
+
+    model, priors, _ = model_factory("eval", cfg, "cpu")
+    model.load_state_dict(checkpoint.load_odtpu_npz(FLAGSHIP, model))
+    loader = DetLoader(VOCDetection(voc, TEST_SETS, reader=cv2.imread),
+                       jloader.transform, batch_size=4, num_workers=2)
+    solver = EvalVOC(loader, cfg, str(tmp_path / "port"))
+    _, maps = solver.validate(make_eval_step(model.eval(), priors, cfg))
+    assert jmaps[0] > 0.3
+    assert abs(maps[0] - jmaps[0]) <= 1e-4
+    assert solver.last_timing["images"] == 6
+    assert solver.last_timing["dropped_dets"] == \
+        jsolver.last_timing["dropped_dets"]
+
+
+def test_checkpointer_and_partial_npz_loads(tmp_path):
+    cfg = default_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    state, _ = create_train_state(cfg, "cpu")
+    ck = checkpoint.Checkpointer(tmp_path / "ckpt", max_to_keep=2)
+    assert ck.latest_step() is None
+    with pytest.raises(FileNotFoundError):
+        ck.restore(state)
+    for s in (1, 2, 3):
+        state.step = s
+        assert ck.save(s, state)
+    assert not ck.save(3, state)  # kept unless forced
+    assert ck.save(3, state, force=True)
+    assert ck.all_steps() == [2, 3] and ck.latest_step() == 3
+    state.step = 0
+    assert ck.restore(state, step=2).step == 2
+
+    model = state.model
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(0)
+    w = rng.randn(3, 3, 3, 64).astype(np.float32)  # HWIO
+    np.savez(tmp_path / "backbone.npz", **{
+        "conv1_1/kernel": w, "conv1_1/bias": np.ones(64, np.float32),
+        "conv9_9/kernel": w})
+    scheme, loaded, skipped = checkpoint.load_basenet(
+        model, tmp_path / "backbone.npz")
+    assert scheme == "backbone" and skipped == ["conv9_9/kernel"]
+    assert sorted(loaded) == ["conv1_1/bias", "conv1_1/kernel"]
+    np.testing.assert_array_equal(
+        model.backbone.conv1_1.conv.weight.detach().numpy(),
+        w.transpose(3, 2, 0, 1))
+    assert torch.equal(model.backbone.conv1_2.conv.weight,
+                       sd["backbone.conv1_2.conv.weight"])
+    np.savez(tmp_path / "full.npz", **{
+        "l2norm/scale": np.full(512, 7, np.float32),
+        "head/loc_0/conv/kernel": np.zeros((3, 3, 5, 5), np.float32),
+        "backbone/conv1_1/conv/bias": np.zeros(64, np.float32),
+        "__batch_stats__/x/mean": np.zeros(3, np.float32)})
+    scheme, loaded, skipped = checkpoint.load_basenet(
+        model, tmp_path / "full.npz")
+    assert scheme == "full-path"
+    assert sorted(loaded) == ["backbone/conv1_1/conv/bias", "l2norm/scale"]
+    assert skipped == ["head/loc_0/conv/kernel"]
+    assert float(model.l2norm.scale.detach()[0]) == 7.0
+    np.savez(tmp_path / "other.npz", **{"fpn/lat_0/conv/kernel": w})
+    with pytest.raises(ValueError, match="matched no parameters"):
+        checkpoint.load_basenet(model, tmp_path / "other.npz")
+
+
+def _fit_cfg(max_iter):
+    cfg = default_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.DATASET.DEVICE_PHOTOMETRIC = True
+    cfg.DATASET.TEST_SETS = TEST_SETS
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5  # bench.py's; 1e-3 diverges from init
+    cfg.TRAIN.MAX_ITER = max_iter
+    cfg.TRAIN.SAVE_ITER = 2
+    cfg.TRAIN.EVAL_ITER = 3
+    cfg.TRAIN.LOG_LOSS_ITER = 1
+    return cfg
+
+
+def _fit_loaders(voc, cfg, out):
+    """The tree's two images at 300x300, as one unshuffled batch of 2 (so
+    every step trains on the same batch) and as the test set."""
+    images = {}
+
+    def reader(path):
+        if path not in images:
+            img = cv2.imread(path)
+            images[path] = cv2.resize(img, (300, 300))
+        return images[path]
+
+    train = DetLoader(VOCDetection(voc, TEST_SETS, reader=reader),
+                      NetworkInput((300, 300)), batch_size=2,
+                      drop_last=True, num_workers=1)
+    test = DetLoader(VOCDetection(voc, TEST_SETS, reader=reader),
+                     NetworkInput((300, 300)), batch_size=2, num_workers=1)
+    return train, EvalVOC(test, cfg, str(out / "eval"))
+
+
+def test_fit_saves_validates_and_resumes_bit_equal(voc2, tmp_path):
+    """3 steps at B=2 with a save every 2 and a validation at 3; then a
+    run that auto-resumes from the step-2 checkpoint and ends where the
+    unbroken run ended, bit for bit (model, momentum, step)."""
+    cfg = _fit_cfg(3)
+    train, solver = _fit_loaders(voc2, cfg, tmp_path / "a")
+    a = fit(cfg, train, solver, tmp_path / "a", device="cpu")
+    assert a["step"] == 3 and a["ckpt_steps"] == [2, 3]
+    assert sorted(p.name for p in (tmp_path / "a" / "ckpt").iterdir()) \
+        == ["2.pt", "3.pt"]
+    assert [e["step"] for e in a["evals"]] == [3]
+    assert 0.0 <= a["evals"][0]["mAP"] <= 1.0
+    assert [m["step"] for m in a["losses"]] == [1, 2]
+    assert all(np.isfinite(m["loss"]) and m["num_pos"] > 0
+               for m in a["losses"])
+    saved = torch.load(tmp_path / "a" / "ckpt" / "2.pt", weights_only=True)
+    assert saved["step"] == 2 and len(saved["model"]) == 71
+
+    (tmp_path / "b" / "ckpt").mkdir(parents=True)
+    (tmp_path / "b" / "ckpt" / "2.pt").write_bytes(
+        (tmp_path / "a" / "ckpt" / "2.pt").read_bytes())
+    train, solver = _fit_loaders(voc2, cfg, tmp_path / "b")
+    b = fit(cfg, train, solver, tmp_path / "b", device="cpu",
+            auto_resume=True)
+    assert b["step"] == 3 and b["evals"][0]["mAP"] == a["evals"][0]["mAP"]
+    sa, sb = a["state"], b["state"]
+    assert sb.step == sa.step == 3
+    for (ka, va), (kb, vb) in zip(sa.model.state_dict().items(),
+                                  sb.model.state_dict().items()):
+        assert ka == kb and torch.isfinite(va).all(), ka
+        assert torch.equal(va, vb), ka
+    ma = sa.optimizer.state_dict()["state"]
+    mb = sb.optimizer.state_dict()["state"]
+    assert ma.keys() == mb.keys() and all(
+        torch.equal(ma[i]["momentum_buffer"], mb[i]["momentum_buffer"])
+        for i in ma)

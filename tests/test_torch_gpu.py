@@ -1,5 +1,6 @@
-"""The CUDA greedy-NMS kernel's two entries against their plain twins, on
-a card.
+"""The CUDA greedy-NMS kernel's two entries against their plain twins,
+the serving path's launches and one train step against the CPU's, on a
+card.
 
 These tests need a CUDA card and skip without one. This file imports no
 JAX, so on the card's machine it runs without the repo's conftest:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from odtpu_torch.infer import Detector, random_images, random_state_dict
 from odtpu_torch.models import probe_layer_dims
 from odtpu_torch.ops import detect
 from odtpu_torch.ops.boxes import decode
@@ -107,3 +109,25 @@ def test_mask_kernel_writes_bool(priors):
     assert int(alive.view(torch.uint8).max()) == 1  # 0 or 1, nothing else
     assert torch.equal(alive, nms_kernel.nms_mask_plain(boxes, scores, 0.45,
                                                         0.01))
+
+
+def test_eval_step_takes_host_batches_and_launches_rows_once(priors):
+    det = Detector(state_dict=random_state_dict(), device="cuda")
+    before = nms_kernel.ROWS_LAUNCHES
+    out = det(random_images(4, (300, 300), 0))  # numpy, as the loader gives
+    torch.cuda.synchronize()
+    assert nms_kernel.ROWS_LAUNCHES == before + 1
+    assert out["rows"].is_cuda and out["rows"].shape == (4, 200, 6)
+    assert torch.isfinite(out["rows"]).all()
+
+
+def test_train_step_on_card_matches_cpu(priors):
+    """One float32 step, TF32 off, B=2, against the CPU's float32 and
+    float64 steps (chip_smoke's train_parity phase, which raises when a
+    tensor gets no gradient in the float64 step, or a card update is off
+    the CPU's by more than 1e-3 with cuDNN off or 5e-3 with cuDNN)."""
+    result = chip_smoke.phase_train_parity()
+    assert result["failing"] == [] and result["tensors"] == 71
+    assert result["no_grad_f64"] == []
+    assert result["card_no_cudnn"]["within_1e-3"] == 71
+    assert result["card"]["num_pos"] == result["num_pos_cpu"] > 0

@@ -16,6 +16,8 @@ The JAX side's parameters (odtpu ``init_model``) are carried across with
 - eval-step rows from the same loc/conf: atol 1e-6, as the detect tests.
 """
 
+import os.path as osp
+
 import flax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 
 from odtpu.models import init_model, model_factory as jmodel_factory
 from odtpu.parallel import make_eval_step as jmake_eval_step
+from odtpu.utils.checkpoint import load_model_npz as jload_model_npz
 from odtpu.utils.config import default_cfg as jdefault_cfg
 
 from odtpu_torch.eval_step import make_eval_step
@@ -33,6 +36,14 @@ from odtpu_torch.utils.checkpoint import from_odtpu_params, load_odtpu_npz
 from odtpu_torch.utils.config import default_cfg
 
 from test_backbone_import import GOLDEN as VGG_GOLDEN, make_weights
+
+# the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
+# threads per worker only contend with the others (and with JAX)
+torch.set_num_threads(2)
+
+# trained SSD300 weights (tests/synth.py images), 71 float16 tensors
+FLAGSHIP = osp.join(osp.dirname(__file__), "..", "history", "tests",
+                    "flagship_r4", "flagship_r4_iter6000_f16.npz")
 
 
 def _flat(params):
@@ -188,3 +199,69 @@ def test_unported_families_raise(ssd_type, base):
 def test_probe_layer_dims_ssd300():
     assert probe_layer_dims(default_cfg()) == [
         (38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1)]
+
+
+def test_init_weights_follow_odtpu_distributions(models):
+    """Each seeded kernel's std within 5 % of odtpu's init_model (truncated
+    He-normal trunk and extras, xavier-uniform heads), biases 0, the
+    L2Norm scale 20."""
+    flat = _flat(models["params"])
+    model, _, _ = model_factory("eval", default_cfg(), device="cpu", seed=3)
+    sd = model.state_dict()
+    n_kernels = 0
+    for key, want in flat.items():
+        name = key.replace("/", ".").replace("kernel", "weight")
+        got = sd[name].numpy()
+        if key.endswith("kernel"):
+            n_kernels += 1
+            assert abs(got.std() / want.std() - 1) <= 0.05, key
+            assert abs(got.mean()) <= 0.05 * want.std(), key
+            # both truncated at the same multiple of the std (or uniform)
+            assert abs(np.abs(got).max() / got.std()
+                       - np.abs(want).max() / want.std()) <= 0.05, key
+        elif key.endswith("bias"):
+            assert not got.any() and not want.any(), key
+        else:
+            np.testing.assert_array_equal(got, want)
+            assert (got == 20.0).all()
+    assert n_kernels == 35
+
+
+def _flagship_image(seed):
+    """[1, 300, 300, 3] uint8 noise with three solid rectangles in
+    tests/synth.py's class colours, the kind of image the flagship
+    checkpoint was trained on."""
+    palette = np.random.RandomState(99).randint(30, 255, (20, 3))
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 255, (300, 300, 3)).astype(np.uint8)
+    for _ in range(3):
+        x, y = rng.randint(0, 200, 2)
+        w, h = rng.randint(40, 100, 2)
+        img[y:y + h, x:x + w] = palette[rng.randint(20)]
+    return img[None]
+
+
+def test_eval_step_on_flagship_weights_matches_odtpu(models):
+    """Trained weights, float32, batch 1: the same classes and ``dropped``,
+    rows within 1e-5."""
+    if not osp.isfile(FLAGSHIP):
+        pytest.skip("the flagship checkpoint is not in this checkout")
+    params = jload_model_npz(models["params"], FLAGSHIP)[0]
+    models["model"].load_state_dict(load_odtpu_npz(FLAGSHIP,
+                                                   models["model"]))
+    jstep = jmake_eval_step(models["jmodel"], models["jpriors"],
+                            models["jcfg"], compact=True)
+    step = make_eval_step(models["model"], models["priors"], models["cfg"])
+    for seed in (0, 1):
+        u8 = _flagship_image(seed)
+        want = jstep.raw_step(params, {}, jstep.priors, jnp.asarray(u8))
+        got = step(torch.from_numpy(u8))
+        rows = np.asarray(want["rows"])
+        kept = rows[..., 0] > 0
+        assert 0 < kept.sum() < 200
+        np.testing.assert_array_equal(got["rows"][..., 5].numpy(),
+                                      rows[..., 5])
+        np.testing.assert_array_equal(got["dropped"].numpy(),
+                                      np.asarray(want["dropped"]))
+        np.testing.assert_allclose(got["rows"].numpy(), rows, rtol=0,
+                                   atol=1e-5)

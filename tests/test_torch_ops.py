@@ -28,6 +28,10 @@ from odtpu_torch.ops.cuda import nms_kernel
 from odtpu_torch.ops.priors import PriorBoxSSD, prior_factory
 from odtpu_torch.utils.config import default_cfg
 
+# the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
+# threads per worker only contend with the others (and with JAX)
+torch.set_num_threads(2)
+
 # odtpu.ops re-exports a function named ``nms`` over the module's name
 jnms = importlib.import_module("odtpu.ops.nms")
 
