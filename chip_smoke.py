@@ -29,14 +29,30 @@ Phases, each printing one JSON line:
    against its plain twin on the batch's candidates. In bfloat16 a
    ``detect_split`` line times each stage of the serving path's detect
    tail, on the device alone and as launched.
-5. train: seeded full-width SSD300-VGG16 takes train steps on the card
+5. families: every other detector of the zoo at its published widths,
+   with seeded weights (``infer.random_state_dict``): FPN300, FSSD300,
+   RFBNet300, RFBNet512, SSD300 over DRN-D-22 and DRN-D-24, DRN_SSD,
+   RefineDet320 (its two-step detect), SSD300-COCO (81 classes) and
+   SSD512-VOC. Each serves bfloat16 uint8 batches of 32 through
+   ``Detector`` (3 warm-up, 10 timed): ``nms_rows`` must launch once per
+   batch and ``nms_mask`` never; the rows must be finite and equal the
+   plain detect path's on the same outputs, and both kernel entries must
+   equal their plain twins on the batch's candidates; the float32
+   forward (TF32 off, batch 2) must agree with the CPU's on the same
+   weights, their batch norms' statistics drawn at random, every output
+   (loc within 1e-4 of its largest value, conf atol 1e-4). One line per configuration: P, images/s, ms/batch,
+   ``forward_ms`` (and ``forward_nchw_ms``, the weights NCHW),
+   ``detect_ms`` (and ``detect_device_ms``, the device alone), the
+   convs' GFLOP an image and TFLOP/s, peak memory, and the ``nms_rows``
+   entry's time on the batch's candidates beside its bound.
+6. train: seeded full-width SSD300-VGG16 takes train steps on the card
    (bfloat16, batch 32, the photometric distortion on the device, LR
    1e-5, seeded uint8 300x300 images with one GT box each): 3 warm-up
    steps, then 20 timed by CUDA events; images/s, ms/step, the split by
    stage (augment, forward, loss = match and mine, backward, optimizer),
    peak memory, and every step's loss finite with num_pos > 0. The NMS
    kernel must not launch in a train step.
-6. train_parity: one float32 step (TF32 off, batch 2) on the card and the
+7. train_parity: one float32 step (TF32 off, batch 2) on the card and the
    same step on the CPU, with the same weights, batch and injected
    augmentation parameters, and on the CPU with the convs in float64.
    The card takes the step with cuDNN and again with cuDNN off. The
@@ -45,7 +61,7 @@ Phases, each printing one JSON line:
    L2 error of 1e-3 of the CPU's with cuDNN off, and of 5e-3 with cuDNN;
    the counts within 1e-3, the ReLU sign flips between the forwards and
    the losses are printed.
-7. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
+8. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
    temporary directory under ``build/`` (XML and ImageSets; the images
    served from memory through the reader): a first run from a
    ``--basenet`` npz saves and validates, a second auto-resumes from its
@@ -75,14 +91,15 @@ from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
 from odtpu_torch.eval.evaluator import EvalVOC
 from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
-from odtpu_torch.models import probe_layer_dims
+from odtpu_torch.models import create_model, probe_layer_dims
+from odtpu_torch.models.common import Conv
 from odtpu_torch.ops import detect
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
-from odtpu_torch.utils.config import default_cfg
+from odtpu_torch.utils.config import default_cfg, load_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -404,10 +421,11 @@ def phase_kernel(priors, ptxas):
     return mask, rows_result
 
 
-def plain_rows(step, loc, conf):
+def plain_rows(step, *outputs):
     """The eval step's rows from the plain detect path: odtpu's lax path
-    (ops.nms.nms_rows per set), no kernel."""
-    decoded = decode(loc, step.priors[None], step.variances)
+    (ops.nms.nms_rows per set), no kernel; RefineDet's outputs through
+    its two-step decode."""
+    decoded, conf = step.decode(*outputs)
     dense = detect._finalize(detect._per_class_nms_reference(
         decoded, conf[..., 1:], step.conf_thresh, step.nms_thresh,
         step.top_k), step.top_k, False)
@@ -495,12 +513,14 @@ def dense_contract(step, loc, conf, label, calls=5):
             "kept": int((dense[..., 0] > 0).sum()), "equal_cpu": True}
 
 
-def phase_main_path(dtype, warmup=3, batches=20):
-    cfg = default_cfg()
-    cfg.TPU.COMPUTE_DTYPE = dtype
+def serve(label, cfg, warmup, batches):
+    """Serve seeded uint8 batches of ``BATCH`` images of ``cfg`` through
+    ``Detector`` on the card, the counts reset just before the timed
+    batches and read just after: one ``nms_rows`` launch per batch and no
+    ``nms_mask``, rows of the right shape, finite, some kept. Returns
+    (detector, weights, images, the serving numbers)."""
     weights = random_state_dict(cfg, seed=0)
     det = Detector(cfg, weights, device="cuda")
-    step = det.step
     images = torch.from_numpy(
         random_images(BATCH, cfg.MODEL.IMAGE_SIZE, 0)).cuda()
     for _ in range(warmup):
@@ -508,7 +528,6 @@ def phase_main_path(dtype, warmup=3, batches=20):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # the serving path: uint8 batches in, rows out
     reset_counts()
     t0 = time.perf_counter()
     for _ in range(batches):
@@ -518,18 +537,32 @@ def phase_main_path(dtype, warmup=3, batches=20):
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
     if launches != {"nms_mask": 0, "nms_rows": batches}:
-        raise AssertionError("{} batches made NMS kernel launches {}; want "
-                             "one nms_rows launch per batch".format(
-                                 batches, launches))
+        raise AssertionError("{}: {} batches made NMS kernel launches {}; "
+                             "want one nms_rows launch per batch".format(
+                                 label, batches, launches))
     rows, dropped = out["rows"], out["dropped"]
-    if rows.shape != (BATCH, 200, 6) or dropped.shape != (BATCH,):
-        raise AssertionError("rows {} dropped {}".format(
-            tuple(rows.shape), tuple(dropped.shape)))
+    if rows.shape != (BATCH, det.step.rows_cap, 6) \
+            or dropped.shape != (BATCH,):
+        raise AssertionError("{}: rows {} dropped {}".format(
+            label, tuple(rows.shape), tuple(dropped.shape)))
     if not torch.isfinite(rows).all():
-        raise AssertionError("non-finite rows")
+        raise AssertionError("{}: non-finite rows".format(label))
     kept = int((rows[..., 0] > 0).sum())
     if kept == 0:
-        raise AssertionError("no detections at all")
+        raise AssertionError("{}: no detections at all".format(label))
+    return det, weights, images, {
+        "batch": BATCH, "batches": batches,
+        "images_per_s": BATCH * batches / seconds,
+        "ms_per_batch": 1e3 * seconds / batches,
+        "max_memory_allocated": peak, "launches": launches,
+        "kept_rows": kept, "dropped": int(dropped.sum())}
+
+
+def phase_main_path(dtype, warmup=3, batches=20):
+    cfg = default_cfg()
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    det, weights, images, served = serve(dtype, cfg, warmup, batches)
+    step = det.step
 
     # where a batch's time goes: the forward and the detect tail alone
     forward_ms = cuda_ms(lambda: step.forward(images), 5)
@@ -544,15 +577,10 @@ def phase_main_path(dtype, warmup=3, batches=20):
 
     dense = dense_contract(step, loc, conf, dtype)
 
-    result = {"phase": "main_path", "dtype": dtype, "batch": BATCH,
-              "batches": batches, "images_per_s": BATCH * batches / seconds,
-              "ms_per_batch": 1e3 * seconds / batches,
+    result = {"phase": "main_path", "dtype": dtype, **served,
               "forward_ms": forward_ms, "detect_ms": detect_ms,
-              "max_memory_allocated": peak,
-              "nms_launches": sum(launches.values()),
-              "launches": launches, "dense": dense,
-              "kept_rows": kept, "dropped": int(dropped.sum()),
-              "rows_equal_plain": True}
+              "nms_launches": sum(served["launches"].values()),
+              "dense": dense, "rows_equal_plain": True}
     if dtype == "bfloat16":
         device, launched = detect_split(step, loc, conf)
         emit({"phase": "detect_split", "dtype": dtype, "batch": BATCH,
@@ -564,24 +592,187 @@ def phase_main_path(dtype, warmup=3, batches=20):
               "detect_ms": detect_ms, "nvidia_smi": power_limit()})
 
     if dtype == "float32":
-        # the forward on the card against the CPU's, same weights, 2 images
-        # (loc within 1e-4 of its largest value, conf atol 1e-4: the sums
-        # run in another order, in float32 on both with TF32 off)
-        x = images[:2]
-        with torch.inference_mode():
-            cpu = Detector(cfg, weights, device="cpu").step.forward(x.cpu())
-            card = det.step.forward(x)
-        loc_err = (card[0].cpu() - cpu[0]).abs().max().item()
-        conf_err = (card[1].cpu() - cpu[1]).abs().max().item()
-        scale = cpu[0].abs().max().item()
-        if not (loc_err <= 1e-4 * scale and conf_err <= 1e-4):
-            raise AssertionError("card forward != CPU forward: loc err {} "
-                                 "(scale {}), conf err {}".format(
-                                     loc_err, scale, conf_err))
-        result.update(cpu_loc_err=loc_err, cpu_loc_scale=scale,
-                      cpu_conf_err=conf_err)
+        result["f32_vs_cpu"] = forward_gap("ssd_vgg16_voc", weights,
+                                           images[:2])
     emit(result)
     return result
+
+
+# every configuration of the zoo but the main path's SSD300-VGG16 VOC
+FAMILIES = ("fpn_vgg16_voc", "fssd_vgg16_voc", "rfbnet300_vgg16_voc",
+            "rfbnet512_vgg16_voc", "ssd_drn22_voc", "ssd_drn24_voc",
+            "drnssd_drn22_voc", "refinedet320_vgg16_voc", "ssd_vgg16_coco",
+            "ssd_vgg16_voc_image512")
+
+
+def random_norms(det, images, seed=0):
+    """Draws, in place, every batch norm of ``det``'s model at random:
+    scale in 0.5..1.5, bias in +-0.5, and running statistics in units of
+    the layer's activation scale s on ``images`` (s^2 the mean of its
+    channels' variances): each channel's mean within +-0.5 s of its own,
+    the variance s^2 times 0.5..1.5. So a norm is not the identity it is
+    at init (1, 0, 0, 1), and it normalises the layer as a trained one
+    does. Drawn without regard to the activations (the seeded weights'
+    first conv is divided by up to 512), the norms' offsets swamp them
+    and grow DRN's logits to ~300, where float32 rounding alone, on the
+    CPU too, moves softmaxed conf past 1e-4; drawn per channel, a quiet
+    channel's rounding noise is scaled up to a loud one's."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(bn, args):
+        x = args[0].double()
+        var = x.var((0, 2, 3), unbiased=False)
+        s2 = var.mean()
+
+        def u():
+            return torch.rand(var.numel(), generator=g, dtype=torch.float64)
+
+        bn.running_mean.copy_(x.mean((0, 2, 3)) + (u() - 0.5) * s2.sqrt())
+        bn.running_var.copy_(s2 * (0.5 + u()))
+        bn.weight.data.copy_(0.5 + u())
+        bn.bias.data.copy_(u() - 0.5)
+
+    hooks = [m.register_forward_pre_hook(draw) for m in det.model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    det.step.forward(images)
+    for h in hooks:
+        h.remove()
+
+
+def forward_gap(name, weights, images):
+    """The float32 forward (TF32 off) of configuration ``name`` on the
+    card against the CPU's, same images, on ``weights`` with the batch
+    norms drawn by :func:`random_norms`: per output, the largest
+    difference, the output's largest value, and the card's and the
+    CPU's largest difference from the CPU's float64 forward; raises past
+    the SSD300 tolerance (loc-like outputs within 1e-4 of their largest
+    value, confs atol 1e-4: the sums run in another order, in float32 on
+    both with TF32 off)."""
+    cfg = load_cfg(name)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg64 = load_cfg(name)
+    cfg64.TPU.COMPUTE_DTYPE = "float64"
+    with torch.inference_mode():
+        cpu_det = Detector(cfg, weights, device="cpu")
+        random_norms(cpu_det, images.cpu())
+        weights = cpu_det.model.state_dict()
+        card = Detector(cfg, weights, device="cuda").step.forward(images)
+        cpu = cpu_det.step.forward(images.cpu())
+        det64 = Detector(cfg64, weights, device="cpu")
+        det64.model.double()
+        ref = det64.step.forward(images.cpu())
+    gaps = []
+    for i, (c, w, r) in enumerate(zip(card, cpu, ref)):
+        c, r = c.cpu(), r.double()
+        err = (c - w).abs().max().item()
+        scale = w.abs().max().item()
+        is_conf = i % 2 == 1  # (loc, conf) or RefineDet's two pairs
+        limit = 1e-4 if is_conf else 1e-4 * scale
+        gaps.append({"err": err, "scale": scale, "limit": limit,
+                     "card_vs_f64": (c - r).abs().max().item(),
+                     "cpu_vs_f64": (w - r).abs().max().item()})
+        if not err <= limit:
+            raise AssertionError("card forward != CPU forward, output {}: "
+                                 "err {} > {}".format(i, err, limit))
+    return gaps
+
+
+def conv_flops(cfg):
+    """Forward FLOPs of one image through ``cfg``'s convs, counted from a
+    forward on the ``meta`` device: 2 x kh x kw x Cin x Cout x Hout x Wout
+    per conv (get_flops.py's multiply-adds, doubled; biases, norms and
+    upsampling left out)."""
+    total = 0
+
+    def count(module, inputs, output):
+        nonlocal total
+        w = module.conv.weight
+        total += 2 * output[0].numel() * w[0].numel()
+
+    with torch.device("meta"):
+        model, _ = create_model(cfg)
+        model.eval()
+        hooks = [m.register_forward_hook(count) for m in model.modules()
+                 if isinstance(m, Conv)]
+        model(torch.empty(1, *cfg.MODEL.IMAGE_SIZE, 3))
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def serve_family(name, warmup=3, batches=10):
+    """One configuration served as the main path serves SSD300: bf16
+    batches of 32 through ``Detector``, checked and timed."""
+    cfg = load_cfg(name)
+    det, weights, images, served = serve(name, cfg, warmup, batches)
+    step = det.step
+    forward_ms = cuda_ms(lambda: step.forward(images), 5)
+    # the same forward with the weights NCHW-contiguous, which the
+    # detector does not serve: what channels_last gains or costs where
+    # batch norm, concatenation and upsampling meet it
+    det.model.to(memory_format=torch.contiguous_format)
+    step.forward(images)
+    forward_nchw_ms = cuda_ms(lambda: step.forward(images), 5)
+    det.model.to(memory_format=torch.channels_last)
+    outputs = step.forward(images)
+    detect_ms = cuda_ms(lambda: step.detect(*outputs), 5)
+    got = step.detect(*outputs)
+    want = plain_rows(step, *outputs)
+    if not torch.equal(got["rows"], want):
+        raise AssertionError("{}: kernel rows != plain detect rows: {} of "
+                             "{} differ".format(
+                                 name, int((got["rows"] != want).sum()),
+                                 want.numel()))
+    # both kernel entries against their plain twins on this batch's
+    # candidates: N = B * (C - 1) sets over P priors
+    decoded, conf = step.decode(*outputs)
+    conf_fg = conf[..., 1:]
+    top_scores, order = nms_kernel._top_order(conf_fg, step.top_k)
+    label = "{} batch candidates".format(name)
+    cf = conf_fg.shape[-1]
+    check_rows(decoded, order, top_scores, cf, label)
+    boxes, scores = nms_kernel.top_candidates(decoded, conf_fg, step.top_k)
+    alive = check_kernel(boxes, scores, label)
+    # the rows entry on this shape through its wrapper, launched from
+    # Python (the kernel phase's wrapper_ms) and on the device alone,
+    # beside its bound on these inputs
+    n, k = scores.shape
+
+    def rows_call():
+        return nms_kernel.nms_rows_cuda(decoded, order, top_scores, cf,
+                                        step.nms_thresh, step.conf_thresh)
+
+    kernel = {"shape": [n, k], "wrapper_ms": cuda_ms(rows_call, 20),
+              "device_ms": graph_ms(rows_call, 20),
+              **bound(n * k * (16 + 8 + 4 + 20),
+                      needed_pairs(boxes, scores, alive))}
+    with torch.inference_mode():
+        detect_device_ms = graph_ms(lambda: step.detect(*outputs), 20)
+
+    gaps = forward_gap(name, weights, images[:2])
+    flops = conv_flops(cfg)
+    result = {"phase": "families", "cfg": name, "dtype": "bfloat16",
+              "family": cfg.MODEL.SSD_TYPE, "base": cfg.MODEL.BASE,
+              "image_size": list(cfg.MODEL.IMAGE_SIZE),
+              "classes": cfg.MODEL.NUM_CLASSES, "P": step.priors.shape[0],
+              "sets": BATCH * cf, "warmup": warmup, **served,
+              "forward_ms": forward_ms, "forward_nchw_ms": forward_nchw_ms,
+              "detect_ms": detect_ms, "detect_device_ms": detect_device_ms,
+              "gflop_per_image": flops / 1e9,
+              "forward_tflop_per_s": flops * BATCH / forward_ms / 1e9,
+              "max_abs_loc": float(outputs[-2].abs().max()),
+              "rows_equal_plain": True, "nms_rows": kernel,
+              "f32_vs_cpu": gaps}
+    emit(result)
+    return result
+
+
+def phase_families():
+    t0 = time.perf_counter()
+    results = [serve_family(name) for name in FAMILIES]
+    emit({"phase": "families_done", "configurations": len(results),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": power_limit()})
+    return results
 
 
 def train_batch(batch, seed=0, device="cuda"):
@@ -955,6 +1146,7 @@ def main():
     mask, rows = phase_kernel(priors, ptxas)
     bf16 = phase_main_path("bfloat16")
     phase_main_path("float32")
+    families = phase_families()
     train = phase_train()
     phase_train_parity()
     fitted = phase_fit()
@@ -971,6 +1163,7 @@ def main():
         entry["launches_by_path"] = {
             "serving": bf16["launches"][name],
             "DetectOut": bf16["dense"]["launches"][name],
+            "families": {f["cfg"]: f["launches"][name] for f in families},
             "train_step": train["launches"][name],
             "fit": sum(r["launches"][name] for r in fitted["runs"])}
     emit({"kernels": [mask, rows]})

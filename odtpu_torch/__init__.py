@@ -3,12 +3,16 @@
 A package beside ``odtpu`` (the JAX reference, which it never imports).
 Module names follow ``odtpu`` so each counterpart is easy to find:
 
-- ``utils.config``: the SSD300-VGG16 VOC defaults as a Python dict tree.
-- ``ops``: box math, priors, exact top-k, greedy NMS and the detect path.
+- ``utils.config``: the SSD300-VGG16 VOC defaults and each family's yml
+  as Python dict trees, by name (``load_cfg``).
+- ``ops``: box math, priors, exact top-k, greedy NMS and the detect path
+  (RefineDet's two-step decode too).
 - ``ops.cuda``: the hand-written CUDA greedy-NMS kernel (source in
   ``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``.
-- ``models``: SSD300 over the VGG16 reduced-fc trunk.
-- ``eval_step`` / ``infer``: uint8 images in, ``[B, 200, 6]`` rows out.
+- ``models``: the zoo: SSD, FPN, FSSD, RFBNet, DRN_SSD and RefineDet over
+  VGG16 (with or without batch norm) or the DRN-D bases.
+- ``eval_step`` / ``infer``: uint8 images in, ``[B, R, 6]`` rows out.
+- ``train_step`` / ``train``: training, SSD over VGG16 so far.
 
 Public boundaries keep ``odtpu``'s NHWC layout; convs run NCHW inside.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,9 +1,10 @@
 """The eval step: uint8 images in, cross-class detection rows out.
 
 Counterpart of ``make_eval_step`` in ``odtpu/parallel/train.py:227-293``
-on its SSD, unquantized, compact path: uint8 BGR NHWC -> float32, mean
+on its unquantized, compact path: uint8 BGR NHWC -> float32, mean
 subtract, BGR -> RGB (reference det_dataset.py:49) -> forward ->
-decode + per-class NMS -> cross-class top rows plus the ``dropped``
+the model's ``decode`` (RefineDet's is its two-step decode,
+``train.py:259-268``) -> per-class NMS -> cross-class top rows plus the ``dropped``
 self-audit: how many per-class survivors the row cap discarded (the
 reference keeps every survivor, so nonzero marks a deviation).
 """
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from .ops.detect import _compact, detect_out
+from .ops.detect import _compact, detect_decoded
 
 
 class EvalStep:
@@ -34,20 +35,28 @@ class EvalStep:
                                   dtype=torch.float32, device=priors.device)
 
     @torch.inference_mode()
-    def forward(self, images: Tensor) -> tuple[Tensor, Tensor]:
+    def forward(self, images: Tensor) -> tuple[Tensor, ...]:
         """[B, H, W, 3] images (uint8 BGR, or already normalized float)
-        -> loc [B, P, 4], softmaxed conf [B, P, C], float32."""
+        -> loc [B, P, 4], softmaxed conf [B, P, C], float32; RefineDet's
+        arm_loc, arm_conf, odm_loc, odm_conf (both confs softmaxed)."""
         if images.dtype == torch.uint8:
             images = (images.float() - self.means).flip(-1)
         return self.model(images, phase="eval")
 
+    def decode(self, *outputs: Tensor) -> tuple[Tensor, Tensor]:
+        """:meth:`forward`'s outputs -> (decoded boxes [B, P, 4], conf
+        [B, P, C]) by the model's own ``decode``, which the per-class NMS
+        takes."""
+        return self.model.decode(*outputs, self.priors, self.variances)
+
     @torch.inference_mode()
-    def detect(self, loc: Tensor, conf: Tensor) -> dict:
+    def detect(self, *outputs: Tensor) -> dict:
+        """:meth:`forward`'s outputs -> rows and ``dropped``."""
         # the per-class survivors-first partition is skipped: _compact
         # re-ranks across classes, and the audit counts ignore row order
-        dense = detect_out(loc, conf, self.priors, self.variances,
-                           self.conf_thresh, self.nms_thresh, self.top_k,
-                           row_compact=False)
+        dense = detect_decoded(*self.decode(*outputs), self.conf_thresh,
+                               self.nms_thresh, self.top_k,
+                               row_compact=False)
         rows = _compact(dense, self.rows_cap)
         return {"rows": rows, "dropped": dropped(dense, rows)}
 
@@ -69,6 +78,6 @@ def dropped(dense: Tensor, rows: Tensor) -> Tensor:
 
 
 def make_eval_step(model, priors: Tensor, cfg) -> EvalStep:
-    """The eval step for ``model`` (an SSD in eval mode) and ``priors``
-    (on the device the step runs on)."""
+    """The eval step for ``model`` (a detector of ``cfg``'s family, in
+    eval mode) and ``priors`` (on the device the step runs on)."""
     return EvalStep(model, priors, cfg)

@@ -1,11 +1,12 @@
-"""Batched SSD300-VGG16 inference: the port's serving entry point.
+"""Batched detection: the port's serving entry point, for every family.
 
 Counterpart of ``bench.py``'s ``infer_fn`` (lines 373-381): uint8 BGR
-NHWC batches in, ``[B, 200, 6]`` rows (score, x1, y1, x2, y2, cls) and
-the ``dropped`` count out.
+NHWC batches in, ``[B, R, 6]`` rows (score, x1, y1, x2, y2, cls) and
+the ``dropped`` count out, for any configuration of
+``utils.config.CFGS``:
 
-    python -m odtpu_torch.infer --batch 32 --batches 20 --seed 0 \
-        [--npz PATH] [--device cpu]
+    python -m odtpu_torch.infer --cfg rfbnet300_vgg16_voc --batch 32 \
+        --batches 20 --seed 0 [--npz PATH] [--device cpu]
 
 prints one JSON line: images/s, ms per batch and the device (on CUDA
 also the card's power limit, which its clocks under load depend on).
@@ -23,31 +24,39 @@ import torch
 
 from .eval_step import make_eval_step
 from .models import model_factory
-from .utils.checkpoint import load_odtpu_npz
-from .utils.config import default_cfg
+from .models.common import Conv
+from .utils.checkpoint import load_odtpu_npz, load_strict
+from .utils.config import CFGS, default_cfg, load_cfg
 
 
-# conv1_1 of :func:`random_state_dict` is divided by this: the input
-# arrives at raw pixel scale (mean-subtracted uint8, std ~70), and at
-# odtpu's init the random loc head reaches |loc| ~ 1000 at full width,
-# where exp(0.2 * loc) in decode overflows float32 and the boxes turn
-# inf/NaN
-RANDOM_INPUT_SCALE = 64.0
+# the first conv of :func:`random_state_dict`, the one that sees the raw
+# pixels, is divided by this, by base. The input arrives at raw pixel
+# scale (mean-subtracted uint8, std ~70), and at odtpu's init the random
+# loc head of SSD300 reaches |loc| ~ 1000 at full width, where
+# exp(0.2 * loc) in decode overflows float32 and the boxes turn inf/NaN.
+# With zero biases and batch norm at its init (running mean 0, variance
+# 1: it normalises nothing) the heads are linear in this scale, except
+# after an L2Norm. The DRN bases add a residual at each of their 8
+# blocks, which grows the loc head further, so they take 8 times more
+# (chip_smoke.py's families phase prints the largest |loc| served)
+RANDOM_INPUT_SCALE = {"vgg16": 64.0, "drn_d_22": 512.0, "drn_d_24": 512.0}
 
 
 def random_state_dict(cfg=None, seed: int = 0) -> dict:
-    """Seeded random SSD300 weights that serve finite boxes: the model's
-    init (:func:`odtpu_torch.models.init_weights`) with conv1_1 divided by
-    :data:`RANDOM_INPUT_SCALE`. On the CPU."""
+    """Seeded random weights of ``cfg``'s detector (default SSD300) that
+    serve finite boxes: the model's init
+    (:func:`odtpu_torch.models.init_weights`) with the base's first conv
+    divided by its :data:`RANDOM_INPUT_SCALE`. On the CPU."""
     cfg = default_cfg() if cfg is None else cfg
     model, _, _ = model_factory("eval", cfg, "cpu", seed)
-    state = model.state_dict()
-    state["backbone.conv1_1.conv.weight"] /= RANDOM_INPUT_SCALE
-    return state
+    first = next(m for m in model.backbone.modules() if isinstance(m, Conv))
+    with torch.no_grad():
+        first.conv.weight /= RANDOM_INPUT_SCALE[cfg.MODEL.BASE]
+    return model.state_dict()
 
 
 class Detector:
-    """SSD300-VGG16 detector on one device.
+    """A detector of ``cfg``'s family (default SSD300-VGG16) on one device.
 
     Weights come from ``state_dict`` as given (see
     :func:`odtpu_torch.utils.checkpoint.from_odtpu_params` and
@@ -61,7 +70,7 @@ class Detector:
         self.device = torch.device(device)
         model, priors, _ = model_factory("eval", self.cfg, self.device, seed)
         if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
+            load_strict(model, state_dict)
         model.eval()
         if self.device.type == "cuda":
             # NHWC in memory: the NHWC->NCHW permute of the input is then
@@ -95,17 +104,21 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cfg", default="ssd_vgg16_voc", choices=sorted(CFGS),
+                    help="the configuration, by its yml's name")
     ap.add_argument("--npz", default="",
-                    help="odtpu SSD300 checkpoint; default: random_state_dict(seed)")
+                    help="odtpu checkpoint of that configuration; default: "
+                    "random_state_dict(seed)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
+    cfg = load_cfg(args.cfg)
     state_dict = (load_odtpu_npz(args.npz) if args.npz
-                  else random_state_dict(seed=args.seed))
-    det = Detector(state_dict=state_dict, device=device)
+                  else random_state_dict(cfg, seed=args.seed))
+    det = Detector(cfg, state_dict=state_dict, device=device)
     images = torch.from_numpy(random_images(
         args.batch, det.cfg.MODEL.IMAGE_SIZE, args.seed)).to(device)
 
@@ -124,7 +137,7 @@ def main(argv=None):
     result = {
         "images_per_s": args.batch * args.batches / seconds,
         "ms_per_batch": 1e3 * seconds / args.batches,
-        "batch": args.batch, "batches": args.batches,
+        "cfg": args.cfg, "batch": args.batch, "batches": args.batches,
         "dtype": det.cfg.TPU.COMPUTE_DTYPE,
         "rows_shape": list(out["rows"].shape),
         "device": (torch.cuda.get_device_name(device)

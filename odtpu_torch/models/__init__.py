@@ -1,8 +1,10 @@
-"""Model factory: SSD over the VGG16 backbone.
+"""Model zoo: explicit registries and the factory.
 
-Counterpart of ``odtpu/models/__init__.py``. Feature-map dims are probed
-with a forward on the ``meta`` device (shapes only, no compute), the
-counterpart of ``jax.eval_shape``, and the priors are generated from
+Counterpart of ``odtpu/models/__init__.py``: every base (VGG16, with or
+without batch norm, DRN-D-22, DRN-D-24) and every detector (SSD,
+SSD_COCO, FPN, FSSD, RFBNet, DRN_SSD, RefineDet). Feature-map dims are
+probed with a forward on the ``meta`` device (shapes only, no compute),
+the counterpart of ``jax.eval_shape``, and the priors are generated from
 those dims.
 """
 
@@ -11,18 +13,21 @@ from __future__ import annotations
 import torch
 
 from ..ops.priors import prior_factory
-from .common import L2Norm
+from .common import Conv, L2Norm
+from .drn import DRN, drn_d_22, drn_d_24
+from .drnssd import DRNSSD
+from .fpn import FPN
+from .fssd import FSSD
+from .refinedet import RefineDet
+from .rfbnet import RFBNet
 from .ssd import EXTRAS_SPEC, SSD, MultiBoxHead, parse_extras
 from .vgg import VGG16
 
 __all__ = ["SSD", "VGG16", "L2Norm", "MultiBoxHead", "EXTRAS_SPEC",
            "parse_extras", "compute_dtype", "create_model",
-           "probe_layer_dims", "model_factory", "init_weights"]
-
-# families and bases of odtpu that are not ported yet (ROADMAP Queue 1
-# item 7, "the other detector families")
-_NOT_PORTED = {"SSD_COCO", "FPN", "FSSD", "RFBNet", "DRN_SSD", "RefineDet",
-               "drn_d_22", "drn_d_24"}
+           "probe_layer_dims", "model_factory", "init_weights",
+           "BASE_REGISTRY", "SSD_REGISTRY", "FPN", "FSSD", "RFBNet",
+           "RefineDet", "DRN", "DRNSSD", "drn_d_22", "drn_d_24"]
 
 # float64 is the numerical reference that float32 runs are held to
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -46,28 +51,83 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[name]
 
 
+# base name -> builder(cfg, dtype, **what the detector needs of it):
+# VGG16's taps and pool5_stride2, a DRN's out_middle
+BASE_REGISTRY = {
+    "vgg16": lambda cfg, dtype, **kw: VGG16(
+        dtype=dtype, batch_norm=bool(cfg.MODEL.BATCH_NORM), **kw),
+    "drn_d_22": lambda cfg, dtype, **kw: drn_d_22(dtype=dtype, **kw),
+    "drn_d_24": lambda cfg, dtype, **kw: drn_d_24(dtype=dtype, **kw),
+}
+
+
+def _base(cfg, dtype, **kw):
+    return BASE_REGISTRY[cfg.MODEL.BASE](cfg, dtype, **kw)
+
+
 def _extras_for(cfg):
     size = cfg.MODEL.IMAGE_SIZE[-1]
     return tuple(cfg.MODEL.EXTRAS) or tuple(EXTRAS_SPEC["ssd" + str(size)])
 
 
+def _build_ssd(cfg, num_priors, dtype):
+    return SSD(_base(cfg, dtype), cfg.MODEL.NUM_CLASSES, num_priors,
+               _extras_for(cfg), dtype=dtype)
+
+
+def _build_fpn(cfg, num_priors, dtype):
+    return FPN(_base(cfg, dtype), cfg.MODEL.NUM_CLASSES, num_priors,
+               _extras_for(cfg), dtype=dtype)
+
+
+def _build_fssd(cfg, num_priors, dtype):
+    return FSSD(_base(cfg, dtype), cfg.MODEL.NUM_CLASSES, num_priors,
+                dtype=dtype)
+
+
+def _build_rfb(cfg, num_priors, dtype):
+    return RFBNet(_base(cfg, dtype), cfg.MODEL.NUM_CLASSES, num_priors,
+                  size=cfg.MODEL.IMAGE_SIZE[-1], dtype=dtype)
+
+
+def _build_drnssd(cfg, num_priors, dtype):
+    return DRNSSD(_base(cfg, dtype, out_middle=True),
+                  cfg.MODEL.NUM_CLASSES, num_priors, dtype=dtype)
+
+
+def _build_refinedet(cfg, num_priors, dtype):
+    base = _base(cfg, dtype, taps=("conv4_3", "conv5_3", "conv7"),
+                 pool5_stride2=True)
+    return RefineDet(base, cfg.MODEL.NUM_CLASSES, num_priors, dtype=dtype)
+
+
+# detector name -> builder(cfg, num_priors, dtype), which builds its base
+SSD_REGISTRY = {
+    "SSD": _build_ssd,
+    # the reference's SSD_COCO is the same architecture wired without
+    # hooks (lib/models/ssd_coco.py:7)
+    "SSD_COCO": _build_ssd,
+    "FPN": _build_fpn,
+    "FSSD": _build_fssd,
+    "RFBNet": _build_rfb,
+    "DRN_SSD": _build_drnssd,
+    "RefineDet": _build_refinedet,
+}
+
+
 def create_model(cfg):
-    """(SSD module on the current default device, prior generator)."""
-    for key in (cfg.MODEL.SSD_TYPE, cfg.MODEL.BASE):
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1 item "
-                "7, the other detector families)".format(key))
-    if cfg.MODEL.BASE != "vgg16":
-        raise KeyError("unknown base {!r}".format(cfg.MODEL.BASE))
-    if cfg.MODEL.SSD_TYPE != "SSD":
-        raise KeyError("unknown detector {!r}".format(cfg.MODEL.SSD_TYPE))
+    """(detector module on the current default device, prior generator)."""
+    if cfg.MODEL.BASE not in BASE_REGISTRY:
+        raise KeyError("unknown base {!r}; known: {}".format(
+            cfg.MODEL.BASE, sorted(BASE_REGISTRY)))
+    if cfg.MODEL.SSD_TYPE not in SSD_REGISTRY:
+        raise KeyError("unknown detector {!r}; known: {}".format(
+            cfg.MODEL.SSD_TYPE, sorted(SSD_REGISTRY)))
     dtype = compute_dtype(cfg)
     prior = prior_factory(cfg)
     num_priors = prior.num_priors
     cfg.MODEL.NUM_PRIOR = num_priors
-    model = SSD(VGG16(dtype=dtype), cfg.MODEL.NUM_CLASSES, num_priors,
-                _extras_for(cfg), dtype=dtype)
+    model = SSD_REGISTRY[cfg.MODEL.SSD_TYPE](cfg, tuple(num_priors), dtype)
     return model, prior
 
 
@@ -76,7 +136,8 @@ def probe_layer_dims(cfg) -> list[tuple[int, int]]:
     h, w = cfg.MODEL.IMAGE_SIZE
     with torch.device("meta"):
         model, _ = create_model(cfg)
-        _, _, sources = model(torch.empty(1, h, w, 3), return_sources=True)
+        model.eval()  # batch norm on one image's 1x1 maps
+        sources = model(torch.empty(1, h, w, 3), return_sources=True)[-1]
     return [(int(s.shape[2]), int(s.shape[3])) for s in sources]
 
 
@@ -85,28 +146,42 @@ def probe_layer_dims(cfg) -> list[tuple[int, int]]:
 _TRUNC_STD = 0.87962566103423978
 
 
-def init_weights(model: SSD, seed: int = 0) -> SSD:
+def _draw_kernel(weight: torch.Tensor, init: str, g: torch.Generator):
+    """``init`` (one of ``common.INITS``, by flax's name) into an OIHW
+    weight; fans count the receptive field, as flax's do."""
+    fan_in = weight[0].numel()
+    fan_out = weight.shape[0] * weight[0, 0].numel()
+    if init == "zeros":
+        weight.zero_()
+    elif init == "xavier_uniform":
+        a = (6.0 / (fan_in + fan_out)) ** 0.5
+        weight.uniform_(-a, a, generator=g)
+    else:  # truncated normal, variance 2 or 1 over fan_in
+        scale = 2.0 if init == "he_normal" else 1.0
+        std = (scale / fan_in) ** 0.5 / _TRUNC_STD
+        torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=g)
+
+
+def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Seeded random init on the CPU, so every device gets the same
-    weights, from ``odtpu``'s distributions: the trunk and extras
-    truncated He-normal (flax's ``he_normal``, ``odtpu``'s ``Conv``
-    default, ``odtpu/models/common.py:155``), the heads xavier-uniform
-    (``odtpu/models/ssd.py:75,78``), zero biases, L2Norm scale 20."""
+    weights, from ``odtpu``'s distributions, module by module: each conv
+    kernel from its ``Conv.init`` (he_normal for ``odtpu``'s ``Conv``
+    default, lecun_normal for RFBNet's ``BasicConv``, xavier_uniform for
+    the heads, zeros for RefineDet's ARM loc heads), zero biases, each
+    L2Norm scale at its ``scale_init``, batch norm at scale 1, bias 0,
+    running mean 0 and variance 1."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, m in model.named_modules():
-            if not isinstance(m, torch.nn.Conv2d):
-                continue
-            fan_out, fan_in = m.weight.shape[0], m.weight[0].numel()
-            rf = m.weight[0, 0].numel()
-            if name.startswith("head."):
-                a = (6.0 / (fan_in + fan_out * rf)) ** 0.5
-                m.weight.uniform_(-a, a, generator=g)
-            else:
-                std = (2.0 / fan_in) ** 0.5 / _TRUNC_STD
-                torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
-                                            2.0 * std, generator=g)
-            m.bias.zero_()
-        model.l2norm.scale.fill_(20.0)
+        for m in model.modules():
+            if isinstance(m, Conv):
+                _draw_kernel(m.conv.weight, m.init, g)
+                if m.conv.bias is not None:
+                    m.conv.bias.zero_()
+            elif isinstance(m, L2Norm):
+                m.scale.fill_(m.scale_init)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_parameters()
     return model
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``odtpu/models/common.py`` (lines 92-189). Tensors are
 NCHW inside the model. Parameters stay float32; each conv runs in the
 block's compute dtype (bfloat16 serving, or float32), as ``odtpu``'s
-``param_dtype=float32, dtype=COMPUTE_DTYPE`` does.
+``param_dtype=float32, dtype=COMPUTE_DTYPE`` does. Batch norm runs in
+float32 (or wider) and casts back, as ``odtpu``'s does.
 """
 
 from __future__ import annotations
@@ -12,27 +13,54 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+# the kernel initializers of odtpu's modules, by flax's name: ``Conv``
+# defaults to he_normal, ``rfbnet.BasicConv`` takes flax's default
+# lecun_normal, the heads xavier_uniform and RefineDet's ARM loc heads
+# zeros (``models.init_weights`` draws them)
+INITS = ("he_normal", "lecun_normal", "xavier_uniform", "zeros")
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
+    """``bn`` applied in float32 (or wider), cast back to ``dtype``."""
+    return bn(x.to(torch.promote_types(x.dtype, torch.float32))).to(dtype)
+
 
 class Conv(nn.Module):
-    """Conv2d + optional ReLU. Batch norm is not ported yet.
+    """Conv2d + optional batch norm + optional ReLU.
 
-    The weight is registered under ``conv`` (``<name>.conv.weight``), as
-    ``odtpu``'s param tree has it (``<name>/conv/kernel``).
+    The weight is registered under ``conv`` (``<name>.conv.weight``) and
+    the norm under ``bn``, as ``odtpu``'s param tree has them
+    (``<name>/conv/kernel``, ``<name>/bn/scale``). Under batch norm the
+    conv has no bias (``odtpu/models/common.py:172``). ``bn_momentum`` is
+    torch's: flax's 0.9 (``Conv``) is 0.1 here, flax's 0.99
+    (``rfbnet.BasicConv``) 0.01. ``kernel`` and ``padding`` take an int or
+    an (h, w) pair.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, padding: int = 0, dilation: int = 1,
-                 relu: bool = True, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, in_ch: int, out_ch: int, kernel=3, stride: int = 1,
+                 padding=0, dilation: int = 1, relu: bool = True,
+                 batch_norm: bool = False, bn_momentum: float = 0.1,
+                 init: str = "he_normal",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if init not in INITS:
+            raise ValueError("init {!r}; known: {}".format(init, INITS))
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
-                              padding=padding, dilation=dilation)
+                              padding=padding, dilation=dilation,
+                              bias=not batch_norm)
+        self.bn = (nn.BatchNorm2d(out_ch, eps=1e-5, momentum=bn_momentum)
+                   if batch_norm else None)
         self.relu = relu
+        self.init = init
         self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
         c = self.conv
-        x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype),
-                     c.bias.to(self.dtype), c.stride, c.padding, c.dilation)
+        bias = None if c.bias is None else c.bias.to(self.dtype)
+        x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), bias,
+                     c.stride, c.padding, c.dilation)
+        if self.bn is not None:
+            x = batch_norm(self.bn, x, self.dtype)
         return F.relu(x) if self.relu else x
 
 
@@ -40,14 +68,16 @@ class L2Norm(nn.Module):
     """Channelwise L2 normalization with a learned per-channel scale.
 
     The norm is computed in float32 (or wider) and eps is added after the
-    sqrt (``odtpu`` common.py:104-111; reference l2norm.py:6, scale init
-    20).
+    sqrt (``odtpu`` common.py:104-111; reference l2norm.py:6). The scale
+    starts at ``scale_init``: 20 on SSD's conv4_3, 10 and 8 on RefineDet's
+    conv4_3 and conv5_3.
     """
 
     def __init__(self, channels: int, scale_init: float = 20.0,
                  eps: float = 1e-10, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.scale = nn.Parameter(torch.full((channels,), scale_init))
+        self.scale_init = scale_init
         self.eps = eps
         self.dtype = dtype
 

@@ -1,4 +1,4 @@
-"""SSD detector head over the VGG16 backbone.
+"""SSD detector head over a multi-scale backbone (VGG16 or a DRN).
 
 Counterpart of ``odtpu/models/ssd.py``. The public boundary is NHWC, as
 in ``odtpu``: the forward takes [B, H, W, 3] images and returns loc
@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 from torch import Tensor, nn
 
+from ..ops.detect import ssd_decode
 from .common import Conv, L2Norm
 
 EXTRAS_SPEC = {
@@ -41,6 +42,12 @@ def parse_extras(spec: Sequence):
     return layers
 
 
+def flatten_head(x: Tensor, width: int) -> Tensor:
+    """A head's NCHW output [B, A*width, H, W] -> [B, H*W*A, width], in
+    the priors' order: cell-major, anchor-minor."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, width)
+
+
 class MultiBoxHead(nn.Module):
     """Per-source 3x3 loc/conf convs -> [B, P, 4] / [B, P, C] in float32.
 
@@ -55,20 +62,62 @@ class MultiBoxHead(nn.Module):
         self.num_classes = num_classes
         for i, (cin, a) in enumerate(zip(in_channels, num_priors)):
             self.add_module(f"loc_{i}", Conv(cin, a * 4, 3, padding=1,
-                                             relu=False, dtype=dtype))
+                                             relu=False,
+                                             init="xavier_uniform",
+                                             dtype=dtype))
             self.add_module(f"conf_{i}", Conv(cin, a * num_classes, 3,
                                               padding=1, relu=False,
+                                              init="xavier_uniform",
                                               dtype=dtype))
 
     def forward(self, sources: Sequence[Tensor]):
         locs, confs = [], []
         for i, src in enumerate(sources):
-            b = src.shape[0]
-            loc = getattr(self, f"loc_{i}")(src).permute(0, 2, 3, 1)
-            conf = getattr(self, f"conf_{i}")(src).permute(0, 2, 3, 1)
-            locs.append(loc.reshape(b, -1, 4))
-            confs.append(conf.reshape(b, -1, self.num_classes))
+            locs.append(flatten_head(getattr(self, f"loc_{i}")(src), 4))
+            confs.append(flatten_head(getattr(self, f"conf_{i}")(src),
+                                      self.num_classes))
         return torch.cat(locs, 1).float(), torch.cat(confs, 1).float()
+
+
+def outputs(loc: Tensor, conf: Tensor, phase: str, sources,
+            return_sources: bool):
+    """(loc, conf[, sources]), conf softmaxed (in float32) when ``phase ==
+    "eval"`` (reference ssd_v3.py:123-127)."""
+    if phase == "eval":
+        conf = torch.softmax(conf, dim=-1)
+    return (loc, conf, sources) if return_sources else (loc, conf)
+
+
+def build_trunk(module: nn.Module, backbone: nn.Module, extras_spec,
+                dtype: torch.dtype) -> list[int]:
+    """Give ``module`` SSD's trunk (``backbone``, ``l2norm`` on the first
+    tap, ``extras_<i>``); returns the channels of its sources."""
+    module.backbone = backbone
+    module.l2norm = L2Norm(backbone.out_channels[0], dtype=dtype)
+    channels = list(backbone.out_channels)
+    cin = backbone.final_channels
+    module.n_extras = 0
+    for i, (f, k, s, p) in enumerate(parse_extras(extras_spec)):
+        module.add_module(f"extras_{i}", Conv(cin, f, k, stride=s,
+                                              padding=p, dtype=dtype))
+        if i % 2 == 1:
+            channels.append(f)
+        cin = f
+        module.n_extras += 1
+    return channels
+
+
+def run_trunk(module: nn.Module, x: Tensor) -> list[Tensor]:
+    """The NCHW sources of a module built by :func:`build_trunk`, from NHWC
+    images."""
+    sources, feat = module.backbone(x.permute(0, 3, 1, 2))
+    sources = list(sources)
+    sources[0] = module.l2norm(sources[0])
+    for i in range(module.n_extras):
+        feat = getattr(module, f"extras_{i}")(feat)
+        if i % 2 == 1:  # a source after every second extra conv
+            sources.append(feat)
+    return sources
 
 
 class SSD(nn.Module):
@@ -79,37 +128,18 @@ class SSD(nn.Module):
     ``return_sources=True`` it also returns the NCHW source maps.
     """
 
+    # (outputs, priors, variances) -> (decoded boxes, conf), which
+    # the eval step's per-class NMS takes
+    decode = staticmethod(ssd_decode)
+
     def __init__(self, backbone: nn.Module, num_classes: int,
                  num_priors: Sequence[int], extras_spec: Sequence,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.backbone = backbone
-        self.l2norm = L2Norm(backbone.out_channels[0], dtype=dtype)
-        channels = list(backbone.out_channels)
-        cin = backbone.final_channels
-        self.n_extras = 0
-        for i, (f, k, s, p) in enumerate(parse_extras(extras_spec)):
-            self.add_module(f"extras_{i}", Conv(cin, f, k, stride=s,
-                                                padding=p, dtype=dtype))
-            if i % 2 == 1:
-                channels.append(f)
-            cin = f
-            self.n_extras += 1
+        channels = build_trunk(self, backbone, extras_spec, dtype)
         self.head = MultiBoxHead(channels, num_classes, num_priors, dtype)
 
     def forward(self, x: Tensor, phase: str = "train",
                 return_sources: bool = False):
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        sources, feat = self.backbone(x)
-        sources = list(sources)
-        sources[0] = self.l2norm(sources[0])
-        for i in range(self.n_extras):
-            feat = getattr(self, f"extras_{i}")(feat)
-            if i % 2 == 1:  # a source after every second extra conv
-                sources.append(feat)
-        loc, conf = self.head(sources)
-        if phase == "eval":
-            conf = torch.softmax(conf, dim=-1)
-        if return_sources:
-            return loc, conf, sources
-        return loc, conf
+        sources = run_trunk(self, x)
+        return outputs(*self.head(sources), phase, sources, return_sources)

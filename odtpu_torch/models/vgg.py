@@ -3,7 +3,10 @@
 Counterpart of ``odtpu/models/vgg.py``: ceil-mode pool3, pool5 3x3/s1/p1,
 dilated conv6 (k3, p6, d6), conv7 1x1. The forward returns the post-ReLU
 activations at ``taps`` (conv4_3 and conv7, the two base-net SSD
-sources) and the conv7 output that feeds the extras.
+sources; RefineDet taps conv5_3 too) and the conv7 output that feeds the
+extras. ``batch_norm`` puts a norm after every conv (VGG16-BN,
+``MODEL.BATCH_NORM``). ``pool5_stride2`` is RefineDet's variant: a 2x2/s2
+pool5 and conv6 with dilation 3, so conv7 sits at stride 32.
 """
 
 from __future__ import annotations
@@ -27,16 +30,21 @@ _LAYERS = [
 
 class VGG16(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 taps: tuple = ("conv4_3", "conv7")):
+                 taps: tuple = ("conv4_3", "conv7"),
+                 batch_norm: bool = False, pool5_stride2: bool = False):
         super().__init__()
         self.taps = taps
+        self.pool5_stride2 = pool5_stride2
         for layer in _LAYERS:
             if isinstance(layer, tuple):
                 name, cin, cout = layer
                 self.add_module(name, Conv(cin, cout, 3, padding=1,
+                                           batch_norm=batch_norm,
                                            dtype=dtype))
-        self.conv6 = Conv(512, 1024, 3, padding=6, dilation=6, dtype=dtype)
-        self.conv7 = Conv(1024, 1024, 1, dtype=dtype)
+        d = 3 if pool5_stride2 else 6
+        self.conv6 = Conv(512, 1024, 3, padding=d, dilation=d,
+                          batch_norm=batch_norm, dtype=dtype)
+        self.conv7 = Conv(1024, 1024, 1, batch_norm=batch_norm, dtype=dtype)
         self.out_channels = [getattr(self, t).conv.out_channels
                              for t in taps]
         self.final_channels = self.conv7.conv.out_channels
@@ -51,7 +59,10 @@ class VGG16(nn.Module):
             else:
                 x = getattr(self, layer[0])(x)
                 acts[layer[0]] = x
-        x = max_pool_ceil(x, 3, 1, padding=1)  # pool5 keeps the dims
+        if self.pool5_stride2:
+            x = max_pool_ceil(x, 2, 2)
+        else:
+            x = max_pool_ceil(x, 3, 1, padding=1)  # pool5 keeps the dims
         x = self.conv6(x)
         x = self.conv7(x)
         acts["conv7"] = x

@@ -1,8 +1,8 @@
 """Detection output: decode + per-class greedy NMS + cross-class rows.
 
-Counterpart of ``odtpu/ops/detect.py`` (lines 76-263, without
-``detect_refine``). The dense contract is the reference's
-(lib/layers/functions/detection.py DetectOut:6):
+Counterpart of ``odtpu/ops/detect.py`` (lines 76-263), RefineDet's
+two-step ``detect_refine`` included. The dense contract is the
+reference's (lib/layers/functions/detection.py DetectOut:6):
 
     output[b, c, k] = [score, x1, y1, x2, y2]   for c in 1..C-1
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from .boxes import decode
+from .boxes import center_size, decode
 from .cuda.nms_kernel import per_class_nms
 from .nms import nms_rows
 from .topk import top_k_exact
@@ -73,8 +73,26 @@ def detect_out(loc: Tensor, conf: Tensor, priors: Tensor, variances,
     Returns:
         [B, C, top_k, 5] float32: (score, x1, y1, x2, y2), zero padded.
     """
+    return detect_decoded(*ssd_decode(loc, conf, priors, variances),
+                          conf_thresh, nms_thresh, top_k, cross_class_topk,
+                          row_compact)
+
+
+def ssd_decode(loc: Tensor, conf: Tensor, priors: Tensor,
+               variances) -> tuple[Tensor, Tensor]:
+    """The single-shot detectors' decode -> (decoded [B, P, 4] point
+    form, conf): ``loc`` against the shared priors [P, 4]."""
     variances = tuple(float(v) for v in variances)
-    decoded = decode(loc, priors[None], variances)  # [B, P, 4]
+    return decode(loc, priors[None], variances), conf
+
+
+def detect_decoded(decoded: Tensor, conf: Tensor, conf_thresh: float,
+                   nms_thresh: float, top_k: int,
+                   cross_class_topk: bool = False,
+                   row_compact: bool = True) -> Tensor:
+    """Per-class NMS of decoded boxes [B, P, 4] (contiguous) and their
+    softmaxed ``conf`` [B, P, C] -> the dense [B, C, top_k, 5]: the tail
+    that :func:`detect_out` and :func:`detect_refine` share."""
     out_fg = per_class_nms(decoded, conf[..., 1:], float(conf_thresh),
                            float(nms_thresh), int(top_k),
                            compact_rows=row_compact)
@@ -103,6 +121,52 @@ def detect_out_compact(loc: Tensor, conf: Tensor, priors: Tensor, variances,
     dense = detect_out(loc, conf, priors, variances, conf_thresh,
                        nms_thresh, top_k, row_compact=False)
     return _compact(dense, int(top_k))
+
+
+# the BBOX_XFORM_CLIP of ``odtpu``'s refinedet_loss (losses.py:36),
+# log(1000 / 16): the largest log-scale a box side may take
+_XFORM_CLIP = 4.135166556742356
+
+
+def refine_decode(arm_loc: Tensor, arm_conf: Tensor, odm_loc: Tensor,
+                  odm_conf: Tensor, priors: Tensor, variances,
+                  neg_anchor_thresh: float = 0.99) -> tuple[Tensor, Tensor]:
+    """RefineDet's two-step decode -> (decoded [B, P, 4] point form,
+    conf [B, P, C]): the ARM's offsets refine the priors (their log-scale
+    clamped at ``_XFORM_CLIP``, as ``odtpu`` does for an untrained net
+    whose raw ``arm_loc`` would overflow exp), the ODM's offsets decode
+    against each image's refined anchors, and anchors the ARM holds to be
+    background (P(bg) > ``neg_anchor_thresh``, the paper's test-time
+    filter) score 0."""
+    variances = tuple(float(v) for v in variances)
+    clip = _XFORM_CLIP / variances[1]
+    arm_loc = torch.cat([arm_loc[..., :2],
+                         arm_loc[..., 2:].clamp(-clip, clip)], -1)
+    refined = center_size(decode(arm_loc, priors[None], variances))
+    decoded = decode(odm_loc, refined, variances)  # [B, P, 4], contiguous
+    keep = arm_conf[..., 0] <= neg_anchor_thresh
+    return decoded, odm_conf * keep[..., None]
+
+
+def detect_refine(arm_loc: Tensor, arm_conf: Tensor, odm_loc: Tensor,
+                  odm_conf: Tensor, priors: Tensor, variances,
+                  conf_thresh: float = 0.01, nms_thresh: float = 0.45,
+                  top_k: int = 200, neg_anchor_thresh: float = 0.99,
+                  compact: bool = True, row_compact: bool | None = None):
+    """RefineDet two-step decode (:func:`refine_decode`) + per-class NMS.
+
+    ``arm_conf`` [B, P, 2] and ``odm_conf`` [B, P, C] must be softmaxed
+    (the eval phase). Returns the cross-class rows [B, top_k, 6] when
+    ``compact``, else the dense [B, C, top_k, 5]. ``row_compact``
+    defaults to ``not compact``, as in :func:`detect_out`; on CUDA
+    tensors ``row_compact=False`` is one ``nms_rows`` launch."""
+    decoded, conf = refine_decode(arm_loc, arm_conf, odm_loc, odm_conf,
+                                  priors, variances, neg_anchor_thresh)
+    if row_compact is None:
+        row_compact = not compact
+    dense = detect_decoded(decoded, conf, conf_thresh, nms_thresh, top_k,
+                           row_compact=bool(row_compact))
+    return _compact(dense, int(top_k)) if compact else dense
 
 
 class DetectOut:

@@ -20,8 +20,10 @@ device:
   seeded by (17, step), as ``odtpu`` folds the step into ``PRNGKey(17)``,
   so a resumed run draws what an unbroken run draws.
 
-The RefineDet loss, the repulsion loss and activation checkpointing
-(``TPU.REMAT``) are not ported yet; the step refuses them.
+Training covers SSD over VGG16 without batch norm. The other families
+(batch norm in train mode, the RefineDet loss), the repulsion loss and
+activation checkpointing (``TPU.REMAT``) are not ported yet; the state
+and the step refuse them.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ class TrainState:
 
 def create_train_state(cfg, device="cuda", seed: int = 0):
     """(TrainState with seeded weights on ``device``, priors [P, 4])."""
+    _refuse_unported(cfg)
     model, priors, _ = model_factory("train", cfg, device, seed)
     model.train()
     if torch.device(device).type == "cuda":
@@ -107,15 +110,25 @@ def create_train_state(cfg, device="cuda", seed: int = 0):
 
 
 def _refuse_unported(cfg) -> None:
-    for what, on in (("the RefineDet loss", cfg.MODEL.SSD_TYPE == "RefineDet"),
-                     ("the repulsion loss (LOSS.REPULSION_WEIGHT > 0)",
-                      float(cfg.LOSS.REPULSION_WEIGHT) > 0),
-                     ("activation checkpointing (TPU.REMAT)",
-                      bool(cfg.TPU.REMAT))):
+    """Training covers SSD over VGG16 without batch norm only: the other
+    families (batch norm in train mode, the RefineDet loss) are ROADMAP
+    Queue 1 item 1, the repulsion loss and remat its item 3."""
+    m = cfg.MODEL
+    family = "{} over {}{}".format(m.SSD_TYPE, m.BASE,
+                                   " with batch norm" if m.BATCH_NORM
+                                   else "")
+    for what, on, where in (
+            ("training " + family,
+             m.SSD_TYPE not in ("SSD", "SSD_COCO") or m.BASE != "vgg16"
+             or bool(m.BATCH_NORM), "item 1, training the other families"),
+            ("the repulsion loss (LOSS.REPULSION_WEIGHT > 0)",
+             float(cfg.LOSS.REPULSION_WEIGHT) > 0, "item 3, the extras"),
+            ("activation checkpointing (TPU.REMAT)", bool(cfg.TPU.REMAT),
+             "item 3, the extras")):
         if on:
             raise NotImplementedError(
-                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1, "
-                "the other families and the extras)".format(what))
+                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1 "
+                "{})".format(what, where))
 
 
 class TrainStep:

@@ -6,7 +6,12 @@ checkpoints.
 (HWIO), ``.../conv/bias``, ``extras_i/conv/*``, ``head/{loc,conf}_i/conv/*``
 and ``l2norm/scale`` (71 tensors for SSD300). The port's modules carry
 the same names with '.' joins, so the map is mechanical: kernels go
-HWIO -> OIHW and everything becomes float32.
+HWIO -> OIHW and everything becomes float32. Batch norm is mapped by its
+module, ``bn`` or ``fusion_bn`` (an L2Norm's ``scale`` keeps its name):
+``<path>/bn/scale`` and ``bias`` are ``.weight`` and ``.bias``, and the
+running statistics, which ``odtpu``'s npz exports carry under
+``__batch_stats__/<path>/bn/{mean,var}`` (``checkpoint.py:143,170-195``),
+are ``running_mean`` and ``running_var``.
 
 :class:`Checkpointer` is the counterpart of ``odtpu``'s orbax
 ``Checkpointer``: ``torch.save`` of the model, the optimizer and the
@@ -24,29 +29,69 @@ import numpy as np
 import torch
 from torch import nn
 
+BATCH_STATS_PREFIX = "__batch_stats__/"
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale"}
+_BN_MODULES = ("bn", "fusion_bn")
+_BN_LEAVES = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _to_port(key: str, value: np.ndarray):
-    """An odtpu '/'-joined param path and value -> (state-dict key, float32
-    tensor), or None when the leaf has no counterpart."""
+    """An odtpu '/'-joined param (or ``__batch_stats__/``) path and value
+    -> (state-dict key, float32 tensor), or None when it has no
+    counterpart."""
+    stats = key.startswith(BATCH_STATS_PREFIX)
+    if stats:
+        key = key[len(BATCH_STATS_PREFIX):]
     *path, leaf = key.split("/")
-    if not path or leaf not in _LEAVES or key.startswith("__"):
+    if not path or key.startswith("__"):
+        return None
+    if path[-1] in _BN_MODULES:
+        leaves = _BN_STATS if stats else _BN_LEAVES
+    else:
+        leaves = {} if stats else _LEAVES
+    if leaf not in leaves:
         return None
     arr = np.array(value, dtype=np.float32)  # an owned copy
     if leaf == "kernel":
         arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    return ".".join(path + [_LEAVES[leaf]]), torch.from_numpy(
+    return ".".join(path + [leaves[leaf]]), torch.from_numpy(
         np.ascontiguousarray(arr))
+
+
+def to_odtpu_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A torch state dict -> ``odtpu``'s flat npz map (the inverse of
+    :func:`from_odtpu_params`): param paths, and the batch-norm running
+    statistics under ``__batch_stats__/``, as float32 numpy."""
+    inverse = {v: k for k, v in _LEAVES.items()}
+    bn_inverse = {v: (False, k) for k, v in _BN_LEAVES.items()}
+    bn_inverse.update({v: (True, k) for k, v in _BN_STATS.items()})
+    out = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().float().numpy()
+        if path and path[-1] in _BN_MODULES:
+            stats, leaf = bn_inverse[leaf]
+        else:
+            stats, leaf = False, inverse[leaf]
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        prefix = BATCH_STATS_PREFIX if stats else ""
+        out[prefix + "/".join(path + [leaf])] = np.ascontiguousarray(arr)
+    return out
 
 
 def from_odtpu_params(flat: Mapping[str, np.ndarray],
                       model: nn.Module | None = None) -> dict:
-    """odtpu param paths -> a torch state dict.
+    """odtpu param paths (and ``__batch_stats__/`` running statistics) ->
+    a torch state dict.
 
     Strict: a key this port has no place for raises, and, when ``model``
     is given, so does any of its tensors left without a value or given
-    one of the wrong shape.
+    one of the wrong shape (batch norm's step counter, which ``odtpu``
+    has not, excepted).
     """
     out, unused = {}, []
     for key, value in flat.items():
@@ -58,7 +103,8 @@ def from_odtpu_params(flat: Mapping[str, np.ndarray],
     if model is not None:
         want = model.state_dict()
         unused += [k for k in out if k not in want]
-        missing = [k for k in want if k not in out]
+        missing = [k for k in want if k not in out
+                   and not k.endswith(".num_batches_tracked")]
         wrong = ["{} {} != {}".format(k, tuple(out[k].shape),
                                       tuple(want[k].shape))
                  for k in want if k in out and out[k].shape != want[k].shape]
@@ -69,6 +115,16 @@ def from_odtpu_params(flat: Mapping[str, np.ndarray],
         raise KeyError("odtpu params with no place in the port: {}".format(
             sorted(unused)))
     return out
+
+
+def load_strict(model: nn.Module, state_dict: Mapping) -> None:
+    """``model.load_state_dict`` that refuses a missing or unexpected key,
+    batch norm's step counter (which ``odtpu`` has not) excepted."""
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith(".num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError("state dict does not fit the model: missing {}, "
+                       "unexpected {}".format(missing, unexpected))
 
 
 def load_odtpu_npz(path, model: nn.Module | None = None) -> dict:
@@ -101,7 +157,7 @@ def load_model_npz(model: nn.Module, path) -> tuple[list, list]:
     pairs, skipped = [], []
     with np.load(path) as data:
         for k in data.files:
-            if k.startswith("__batch_stats__/"):
+            if k.startswith(BATCH_STATS_PREFIX):
                 continue
             mapped = _to_port(k, data[k])
             if mapped is None:

@@ -2,12 +2,15 @@
 
 Counterpart of ``odtpu/utils/config.py`` (defaults at lines 96-208)
 merged with ``cfgs/base/ssd_vgg16_voc.yml``: the SSD300-VGG16 VOC07+12
-configuration, for serving and training. There is no YAML reader: the
-config is a Python dict, so the port needs nothing beyond the standard
-library to build it.
+configuration, for serving and training. :func:`load_cfg` gives each
+committed family yml by its name. There is no YAML reader: each
+configuration is a Python dict, so the port needs nothing beyond the
+standard library to build it.
 """
 
 from __future__ import annotations
+
+import copy
 
 
 class AttrDict(dict):
@@ -58,6 +61,7 @@ def default_cfg() -> AttrDict:
     C.MODEL.CLIP = True
     C.MODEL.FLIP = True
     C.MODEL.EXTRAS = []  # [] = the built-in spec for the image size
+    C.MODEL.BATCH_NORM = False  # VGG16-BN
 
     C.LOSS = AttrDict()
     C.LOSS.OVERLAP_THRESH = 0.5
@@ -100,3 +104,84 @@ def update_cfg(c: AttrDict) -> AttrDict:
     c.MODEL.NUM_CLASSES = c.DATASET.NUM_CLASSES + 1  # + background
     c.MODEL.IMAGE_SIZE = tuple(c.DATASET.IMAGE_SIZE)
     return c
+
+
+# SSD512's prior spec, shared by its VOC, COCO and RFBNet512 ymls
+_IMAGE512 = dict(STEPS=[8, 16, 32, 64, 128, 256, 512],
+                 ASPECT_RATIOS=[[2], [2, 3], [2, 3], [2, 3], [2, 3], [2],
+                                [2]],
+                 MIN_SIZES=[35.84, 76.8, 153.6, 230.4, 307.2, 384.0, 460.8],
+                 MAX_SIZES=[76.8, 153.6, 230.4, 307.2, 384.0, 460.8, 537.6])
+_COCO = dict(NAME="COCO2014", TEST_SETS=(("2014", "minival"),),
+             NUM_CLASSES=80, NUM_EVAL_PICS=1024)
+_COCO_TRAIN = dict(MAX_ITER=400000, EVAL_ITER=40000, SAVE_ITER=10000,
+                   LR_SCHEDULER=dict(STEPS=(280000, 360000, 400000)))
+
+# name -> (the yml it stands for, what it sets over the defaults); the
+# keys the port has no use for (SUB_DIR, TRAIN_SETS, EVAL_BATCH_SIZE)
+# are left out
+CFGS = {
+    "ssd_vgg16_voc": ("cfgs/base/ssd_vgg16_voc.yml", {}),
+    "ssd_vgg16_coco": ("cfgs/base/ssd_vgg16_coco.yml",
+                       dict(DATASET=_COCO, TRAIN=_COCO_TRAIN)),
+    "ssd_vgg16_coco_image512": (
+        "cfgs/base/ssd_vgg16_coco_image512.yml",
+        dict(DATASET=dict(_COCO, TEST_SETS=("minival2014",),
+                          IMAGE_SIZE=(512, 512)),
+             MODEL=dict(_IMAGE512, MIN_SIZES=[20.48, 51.2, 133.12, 215.04,
+                                              296.96, 378.88, 460.8],
+                        MAX_SIZES=[51.2, 133.12, 215.04, 296.96, 378.88,
+                                   460.8, 542.72]),
+             TRAIN=_COCO_TRAIN, EVAL=dict(COMPACT_ROWS=400))),
+    "ssd_vgg16_voc_image512": (
+        "cfgs/vgg/ssd_vgg16_voc_image512.yml",
+        dict(DATASET=dict(IMAGE_SIZE=(512, 512)), MODEL=_IMAGE512,
+             EVAL=dict(COMPACT_ROWS=400))),
+    "fpn_vgg16_voc": ("cfgs/vgg/fpn_vgg16_voc.yml",
+                      dict(MODEL=dict(SSD_TYPE="FPN"))),
+    "fssd_vgg16_voc": ("cfgs/fssd/fssd_vgg16_voc.yml",
+                       dict(MODEL=dict(SSD_TYPE="FSSD"))),
+    "rfbnet300_vgg16_voc": (
+        "cfgs/rfb/rfbnet300_vgg16_voc.yml",
+        dict(MODEL=dict(SSD_TYPE="RFBNet", ASPECT_RATIOS=[
+            [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]))),
+    "rfbnet512_vgg16_voc": (
+        "cfgs/rfb/rfbnet512_vgg16_voc.yml",
+        dict(DATASET=dict(IMAGE_SIZE=(512, 512)),
+             MODEL=dict(_IMAGE512, SSD_TYPE="RFBNet", ASPECT_RATIOS=[
+                 [2, 3], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]))),
+    "ssd_drn22_voc": ("cfgs/drn/ssd_drn22_voc.yml",
+                      dict(MODEL=dict(BASE="drn_d_22"))),
+    "ssd_drn24_voc": ("cfgs/drn/ssd_drn24_voc.yml",
+                      dict(MODEL=dict(BASE="drn_d_24"))),
+    # no yml: odtpu builds DRN_SSD only from code (tests/test_model_zoo.py)
+    "drnssd_drn22_voc": (None, dict(MODEL=dict(SSD_TYPE="DRN_SSD",
+                                               BASE="drn_d_22"))),
+    "refinedet320_vgg16_voc": (
+        "cfgs/refinedet/refinedet320_vgg16_voc.yml",
+        dict(DATASET=dict(IMAGE_SIZE=(320, 320)),
+             MODEL=dict(SSD_TYPE="RefineDet", STEPS=[8, 16, 32, 64],
+                        MIN_SIZES=[32, 64, 128, 256], MAX_SIZES=[],
+                        ASPECT_RATIOS=[[2], [2], [2], [2]]))),
+}
+
+
+def _merge(overlay: dict, into: AttrDict, where: str = "") -> None:
+    for key, value in overlay.items():
+        if key not in into:
+            raise KeyError("no config key {}{}".format(where, key))
+        if isinstance(value, dict):
+            _merge(value, into[key], where + key + ".")
+        else:
+            into[key] = copy.deepcopy(value)
+
+
+def load_cfg(name: str = "ssd_vgg16_voc") -> AttrDict:
+    """A fresh config tree for one of :data:`CFGS` (derived values filled
+    in): the defaults with that yml's values over them."""
+    if name not in CFGS:
+        raise KeyError("unknown config {!r}; known: {}".format(
+            name, sorted(CFGS)))
+    c = default_cfg()
+    _merge(CFGS[name][1], c)
+    return update_cfg(c)

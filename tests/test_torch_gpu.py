@@ -1,6 +1,6 @@
 """The CUDA greedy-NMS kernel's two entries against their plain twins,
-the serving path's launches and one train step against the CPU's, on a
-card.
+the serving path's launches (SSD300 and RefineDet320) and one train step
+against the CPU's, on a card.
 
 These tests need a CUDA card and skip without one. This file imports no
 JAX, so on the card's machine it runs without the repo's conftest:
@@ -18,7 +18,7 @@ from odtpu_torch.ops import detect
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import nms_kernel
 from odtpu_torch.ops.priors import prior_factory
-from odtpu_torch.utils.config import default_cfg
+from odtpu_torch.utils.config import default_cfg, load_cfg
 
 pytestmark = pytest.mark.gpu
 
@@ -119,6 +119,22 @@ def test_eval_step_takes_host_batches_and_launches_rows_once(priors):
     assert nms_kernel.ROWS_LAUNCHES == before + 1
     assert out["rows"].is_cuda and out["rows"].shape == (4, 200, 6)
     assert torch.isfinite(out["rows"]).all()
+
+
+def test_refinedet_served_on_card_equals_plain_detect(priors):
+    """A family beyond SSD300: RefineDet320's two-step detect through one
+    nms_rows launch a batch, rows equal to the plain path's."""
+    cfg = load_cfg("refinedet320_vgg16_voc")
+    det = Detector(cfg, random_state_dict(cfg), device="cuda")
+    images = torch.from_numpy(random_images(4, (320, 320), 1)).cuda()
+    before = nms_kernel.ROWS_LAUNCHES
+    out = det(images)
+    torch.cuda.synchronize()
+    assert nms_kernel.ROWS_LAUNCHES == before + 1
+    assert out["rows"].shape == (4, 200, 6)
+    assert torch.isfinite(out["rows"]).all()
+    want = chip_smoke.plain_rows(det.step, *det.step.forward(images))
+    assert torch.equal(out["rows"], want)
 
 
 def test_train_step_on_card_matches_cpu(priors):

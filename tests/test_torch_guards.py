@@ -49,6 +49,10 @@ def test_port_and_chip_smoke_import_without_refused_modules():
             odtpu_torch.__path__, "odtpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the model zoo: every family's module
+        for family in ("drn", "drnssd", "fpn", "fssd", "refinedet",
+                       "rfbnet"):
+            assert "odtpu_torch.models." + family in names, family
         import chip_smoke
         leaked = [m for m in sys.modules
                   if any(m == r or m.startswith(r + ".") for r in REFUSED)]
@@ -57,7 +61,7 @@ def test_port_and_chip_smoke_import_without_refused_modules():
     """).format(refused=_REFUSED)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 30
+    assert int(proc.stdout.split()[0]) >= 36
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():
