@@ -54,24 +54,42 @@ Phases, each printing one JSON line:
    kernel must not launch in a train step.
 7. train_parity: one float32 step (TF32 off, batch 2) on the card and the
    same step on the CPU, with the same weights, batch and injected
-   augmentation parameters, and on the CPU with the convs in float64.
+   augmentation parameters, and on the CPU in float64.
    The card takes the step with cuDNN and again with cuDNN off. The
    batch gives every head and extra layer a gradient, which the float64
    step must show. Each tensor's card update must lie within a relative
    L2 error of 1e-3 of the CPU's with cuDNN off, and of 5e-3 with cuDNN;
    the counts within 1e-3, the ReLU sign flips between the forwards and
    the losses are printed.
-8. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
+8. family_train: every configuration of the families phase trains at
+   full width from ``create_train_state``'s init, as ``train`` does for
+   SSD300 (bf16, batch 32, 3 warm-up and 10 timed steps): ms/step,
+   images/s, the split by stage, peak memory; every loss finite with
+   num_pos > 0, every batch norm's running statistics finite and moved,
+   no NMS launch. Each model is freed before the next.
+9. family_train_parity: ``train_parity`` for RFBNet300 (batch norm) and
+   RefineDet320 (its two-step loss, the ARM heads moved off their init
+   so that the refined anchors, their clamp and the negative-anchor
+   filter take part): one step on the card with and without cuDNN
+   against the CPU's, in float64 and in float32. In float64 every
+   update and running statistic must lie within the same limits; in
+   float32 the losses, positives, ignored anchors and running statistics
+   must, and the updates are printed beside the ReLU sign flips that
+   put them off (see :func:`family_train_parity`).
+10. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
    temporary directory under ``build/`` (XML and ImageSets; the images
    served from memory through the reader): a first run from a
    ``--basenet`` npz saves and validates, a second auto-resumes from its
    checkpoint, saves and validates again. Each validation scores VOC mAP
    through the serving path, so ``nms_rows`` must launch once per eval
-   batch.
-Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``,
-printed only when every phase passed.
+   batch. Then the same two runs of RFBNet300: each validation must
+   leave its running statistics bit-equal, and a restore of the first
+   run's checkpoint must give them back bit-equal.
+Then each phase's seconds, the ``kernels`` line, and last ``{"ok": true,
+"device": ...}``, printed only when every phase passed.
 """
 
+import gc
 import json
 import math
 import os
@@ -99,6 +117,7 @@ from odtpu_torch.ops.cuda import build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
+from odtpu_torch.utils.checkpoint import Checkpointer
 from odtpu_torch.utils.config import default_cfg, load_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -775,11 +794,11 @@ def phase_families():
     return results
 
 
-def train_batch(batch, seed=0, device="cuda"):
-    """bench.py ``_train_throughput``'s inputs: seeded uint8 300x300 BGR
-    images, one GT box [0.2, 0.2, 0.7, 0.7] with label 3 each, padded to
-    60 with label -1."""
-    images = torch.from_numpy(random_images(batch, (300, 300), seed))
+def train_batch(batch, seed=0, device="cuda", size=(300, 300)):
+    """bench.py ``_train_throughput``'s inputs: seeded uint8 BGR images
+    (300x300 unless ``size``), one GT box [0.2, 0.2, 0.7, 0.7] with label
+    3 each, padded to 60 with label -1."""
+    images = torch.from_numpy(random_images(batch, size, seed))
     boxes = torch.zeros(batch, 60, 4)
     boxes[:, 0] = torch.tensor([0.2, 0.2, 0.7, 0.7])
     labels = torch.full((batch, 60), -1, dtype=torch.int32)
@@ -787,8 +806,8 @@ def train_batch(batch, seed=0, device="cuda"):
     return images.to(device), boxes.to(device), labels.to(device)
 
 
-def train_cfg(dtype):
-    cfg = default_cfg()
+def train_cfg(dtype, name="ssd_vgg16_voc"):
+    cfg = load_cfg(name)
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.DATASET.DEVICE_PHOTOMETRIC = True
     cfg.TRAIN.OPTIMIZER.LR = 1e-5
@@ -808,9 +827,9 @@ def stage_split(step, state, images, boxes, labels, iters):
         ev[0].record()
         x = step.augment(images, state.step)
         ev[1].record()
-        loc, conf = step.forward(state, x)
+        outputs = step.forward(state, x)
         ev[2].record()
-        metrics = step.loss(loc, conf, boxes, labels)
+        metrics = step.loss(outputs, boxes, labels, state.step)
         ev[3].record()
         step.backward(state, metrics)
         ev[4].record()
@@ -873,19 +892,26 @@ def rel_l2(got, want):
     return 0.0 if diff == 0.0 else diff / float(want.norm())
 
 
-# SSD300's prior scales (MIN_SIZES / 300) and the side of each scale's map
-PRIOR_SCALES = ((0.1, 38), (0.2, 19), (0.37, 10), (0.54, 5), (0.71, 3),
-                (0.88, 1))
+def prior_scales(cfg):
+    """Each prior map's scale (MIN_SIZES over the image side) and side:
+    SSD300's are (0.1, 38), (0.2, 19), (0.37, 10), (0.54, 5), (0.71, 3),
+    (0.88, 1)."""
+    size = float(cfg.MODEL.IMAGE_SIZE[0])
+    return [(m / size, h) for m, (h, _) in zip(cfg.MODEL.MIN_SIZES,
+                                              probe_layer_dims(cfg))]
 
 
-def parity_batch(batch, seed=1):
+def parity_batch(batch, seed=1, cfg=None):
     """Images like photographs (smooth seeded colour fields with mild
-    noise, uint8 BGR) and, in each, one GT box for each prior scale,
-    centred on a cell of that scale's map, so that every head and every
-    extra layer gets a gradient."""
+    noise, uint8 BGR) of ``cfg``'s size (SSD300's by default) and, in
+    each, one GT box for each prior scale, centred on a cell of that
+    scale's map, so that every head and every extra layer gets a
+    gradient."""
+    cfg = cfg or default_cfg()
+    size = cfg.MODEL.IMAGE_SIZE[0]
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:300, 0:300] / 300.0
-    images = np.empty((batch, 300, 300, 3), np.float64)
+    yy, xx = np.mgrid[0:size, 0:size] / float(size)
+    images = np.empty((batch, size, size, 3), np.float64)
     boxes = torch.zeros(batch, 60, 4)
     labels = torch.full((batch, 60), -1, dtype=torch.int32)
     for b in range(batch):
@@ -894,8 +920,8 @@ def parity_batch(batch, seed=1):
             images[b, :, :, c] = (128 + 60 * np.sin(3 * a[0] * xx + 2 * a[1]
                                                     * yy + a[2])
                                   + 40 * np.cos(4 * a[3] * xx * yy + a[4]))
-        images[b] += rng.normal(0, 2, (300, 300, 3))
-        for i, (side, n) in enumerate(PRIOR_SCALES):
+        images[b] += rng.normal(0, 2, (size, size, 3))
+        for i, (side, n) in enumerate(prior_scales(cfg)):
             cx = ((b * 7 + i * 3) % n + 0.5) / n
             cy = (((b + 1) * 5 + i) % n + 0.5) / n
             stretch = 1.0 + 0.15 * (b - 0.5)
@@ -917,6 +943,12 @@ def relu_masks(model):
                 lambda m, i, o, name=name: masks.__setitem__(
                     name, (o > 0).cpu()))
     return masks
+
+
+def relu_flips(a, b):
+    """Outputs of the Conv ReLUs whose sign differs between two forwards'
+    masks (:func:`relu_masks`)."""
+    return sum(int((a[k] != m).sum()) for k, m in b.items())
 
 
 def parity_step(device, dtype, weights, batch, params):
@@ -942,8 +974,8 @@ def parity_step(device, dtype, weights, batch, params):
 def phase_train_parity(batch=2, tol=1e-3, cudnn_limit=5e-3):
     """One float32 step (TF32 off) on the card and on the CPU from the same
     weights (:func:`random_state_dict`), batch and augmentation
-    parameters; beside them the same step on the CPU with the convs in
-    float64, the exact answer.
+    parameters; beside them the same step on the CPU in float64 (the
+    distortion, the model and the loss), the exact answer.
 
     The card takes the step twice: as the train path runs it, with
     cuDNN's convs, and with cuDNN off (PyTorch's own CUDA convs, GEMMs).
@@ -970,17 +1002,15 @@ def phase_train_parity(batch=2, tol=1e-3, cudnn_limit=5e-3):
                                             data, params)
     cpu, exact = runs["cpu"], runs["cpu_f64"]
 
-    def flips(a, b):
-        return sum(int((a[2][k] != b[2][k]).sum()) for k in b[2])
-
     result = {"phase": "train_parity", "dtype": "float32", "tf32": False,
               "batch": batch, "images": "smooth fields + noise std 2",
-              "gt_per_image": len(PRIOR_SCALES), "tensors": len(exact[4]),
+              "gt_per_image": len(prior_scales(default_cfg())),
+              "tensors": len(exact[4]),
               "no_grad_f64": exact[3], "loss_cpu": cpu[0],
               "loss_cpu_f64": exact[0], "num_pos_cpu": cpu[1],
               "max_cpu_vs_f64": max(rel_l2(cpu[4][k], v)
                                     for k, v in exact[4].items()),
-              "relu_flips_cpu_vs_f64": flips(cpu, exact), "failing": []}
+              "relu_flips_cpu_vs_f64": relu_flips(cpu[2], exact[2]), "failing": []}
     for name, limit in (("card", cudnn_limit), ("card_no_cudnn", tol)):
         run = runs[name]
         vs_cpu = {k: rel_l2(run[4][k], v) for k, v in cpu[4].items()}
@@ -992,8 +1022,8 @@ def phase_train_parity(batch=2, tol=1e-3, cudnn_limit=5e-3):
             "over_1e-3": sorted(k for k, v in vs_cpu.items() if v > tol),
             "max_vs_f64": max(rel_l2(run[4][k], v)
                               for k, v in exact[4].items()),
-            "relu_flips_vs_cpu": flips(run, cpu),
-            "relu_flips_vs_f64": flips(run, exact),
+            "relu_flips_vs_cpu": relu_flips(run[2], cpu[2]),
+            "relu_flips_vs_f64": relu_flips(run[2], exact[2]),
             "rel_l2_vs_cpu": vs_cpu}
         result["failing"] += ["{} {}".format(name, k)
                               for k, v in vs_cpu.items() if not v <= limit]
@@ -1009,6 +1039,303 @@ def phase_train_parity(batch=2, tol=1e-3, cudnn_limit=5e-3):
         raise AssertionError("card step off the CPU's: {}".format(
             result["failing"]))
     return result
+
+
+def running_stats(model):
+    """{name: clone} of ``model``'s batch norms' running statistics."""
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def train_family(name, warmup=3, steps=10, split_iters=5):
+    """Seeded full-width ``name`` (``create_train_state``'s init) takes
+    bf16 train steps of ``BATCH`` images on the card, as ``phase_train``
+    does for SSD300, its gradient clipped at a global norm of 10: every
+    loss finite with num_pos > 0, no NMS launch, every running statistic
+    finite and moved from its init."""
+    cfg = train_cfg("bfloat16", name)
+    # the clip of cfgs/tests/*_ft.yml: from init at pixel scale, FPN300's
+    # unclipped steps at LR 1e-5 diverge to NaN within four steps, as
+    # odtpu's would
+    cfg.TRAIN.OPTIMIZER.CLIP_GRAD_NORM = 10.0
+    state, priors = create_train_state(cfg, "cuda", seed=0)
+    init = running_stats(state.model)
+    step = make_train_step(priors, cfg)
+    images, boxes, labels = train_batch(BATCH, size=cfg.MODEL.IMAGE_SIZE)
+    for _ in range(warmup):
+        step(state, images, boxes, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = [step(state, images, boxes, labels) for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = start.elapsed_time(end) / steps
+    losses = [float(m["loss"]) for m in metrics]
+    num_pos = [int(m["num_pos"]) for m in metrics]
+    stats = running_stats(state.model)
+    moved = sum(not torch.equal(v, init[k]) for k, v in stats.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
+    split = stage_split(step, state, images, boxes, labels, split_iters)
+    result = {"phase": "family_train", "cfg": name, "dtype": "bfloat16",
+              "family": cfg.MODEL.SSD_TYPE, "base": cfg.MODEL.BASE,
+              "batch_norm": bool(stats), "batch": BATCH,
+              "image_size": list(cfg.MODEL.IMAGE_SIZE),
+              "P": priors.shape[0], "clip_grad_norm": 10.0,
+              "warmup_steps": warmup, "steps": steps,
+              "ms_per_step": ms, "images_per_s": BATCH * 1e3 / ms,
+              "split_ms": split, "split_sum_ms": sum(split.values()),
+              "split_steps": split_iters, "max_memory_allocated": peak,
+              "losses": losses, "num_pos": num_pos, "launches": launches,
+              "running_stats": len(stats), "stats_moved": moved,
+              "stats_finite": finite}
+    emit(result)
+    if launches != {"nms_mask": 0, "nms_rows": 0}:
+        raise AssertionError("{}: train steps launched the NMS kernel: "
+                             "{}".format(name, launches))
+    if not all(math.isfinite(v) for v in losses) or min(num_pos) <= 0:
+        raise AssertionError("{}: train losses {} num_pos {}".format(
+            name, losses, num_pos))
+    if not finite or moved != len(stats):
+        raise AssertionError("{}: {} of {} running statistics moved, "
+                             "finite {}".format(name, moved, len(stats),
+                                                finite))
+    return result
+
+
+def phase_family_train():
+    results = []
+    for name in FAMILIES:
+        results.append(train_family(name))
+        # free the model and its optimizer before the next one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def perturbed_arm(weights, seed=0):
+    """RefineDet's seeded weights with its ARM heads moved off their init,
+    so that a step exercises the refined anchors, their log-scale clamp
+    and the negative-anchor filter: random loc kernels (the init's are
+    zero), each level's first anchor's log-scales biased to +-25 (past
+    the clamp of 20.7), and the background logit biased by +4, which
+    puts part of the anchors past P(bg) = 0.99."""
+    g = torch.Generator().manual_seed(seed)
+    out = dict(weights)
+    for key, value in weights.items():
+        if key.startswith("arm_loc_") and key.endswith("weight"):
+            out[key] = torch.randn(value.shape, generator=g) * 0.01
+        elif key.startswith("arm_loc_") and key.endswith("bias"):
+            out[key] = value.clone()
+            out[key][2:4] = torch.tensor([25.0, -25.0])
+        elif key.startswith("arm_conf_") and key.endswith("bias"):
+            out[key] = value.clone()
+            out[key][0::2] += 4.0
+    return out
+
+
+def arm_ignored(model, step, images, params):
+    """Anchors RefineDet's ARM holds to be background (P > 0.99) on the
+    step's augmented ``images``."""
+    with torch.no_grad():
+        x = step.augment(images, 0, params)
+        arm_conf = model(x, phase="train")[1]
+        return int((torch.softmax(arm_conf, -1)[..., 0] > 0.99).sum())
+
+
+def family_parity_step(device, dtype, name, weights, batch, params):
+    """One train step of ``name`` from ``weights`` (SGD, LR 1e-3), as a
+    dict: loss, num_pos, ignored anchors (RefineDet, else None), the
+    names without a gradient, {name: momentum after the step}, {name:
+    running statistic}, both in float64 on the CPU, and the Conv ReLUs'
+    masks (:func:`relu_masks`)."""
+    images, boxes, labels = (t.to(device) for t in batch)
+    cfg = train_cfg(dtype, name)
+    cfg.TRAIN.OPTIMIZER.LR = 1e-3  # the default
+    state, priors = create_train_state(cfg, device, seed=0)
+    state.model.load_state_dict(weights)
+    if dtype == "float64":
+        state.model.double()
+        priors = priors.double()
+    step = make_train_step(priors, cfg)
+    ignored = (arm_ignored(state.model, step, images, params)
+               if step.refinedet else None)
+    masks = relu_masks(state.model)
+    m = step(state, images, boxes, labels, aug_params=params)
+    opt = state.optimizer.state
+    return {
+        "loss": float(m["loss"]), "num_pos": int(m["num_pos"]),
+        "ignored": ignored, "masks": masks,
+        "no_grad": [k for k, p in state.model.named_parameters()
+                    if p.grad is None or not bool(p.grad.any())],
+        "momentum": {k: opt[p]["momentum_buffer"].double().cpu()
+                     for k, p in state.model.named_parameters()},
+        "stats": {k: v.double().cpu()
+                  for k, v in running_stats(state.model).items()}}
+
+
+def momentum_errors(got, want):
+    """{name: error} of each momentum in ``got`` against ``want``: the
+    relative L2 error, taken against 1e-3 of the layer's largest update
+    where the tensor's own is smaller (an RFB branch's last norm feeds a
+    1x1 conv and a train-mode norm, which removes its channels' means:
+    that norm's bias has no gradient in exact arithmetic, and its update
+    is weight decay and rounding noise, ~1e-8)."""
+    layer = {}
+    for k, v in want.items():
+        name = k.rsplit(".", 2)[0]
+        layer[name] = max(layer.get(name, 0.0), float(v.norm()))
+    return {k: float((got[k] - v).norm()) / max(
+        float(v.norm()), 1e-3 * layer[k.rsplit(".", 2)[0]], 1e-30)
+        for k, v in want.items()}
+
+
+def stats_errors(got, want):
+    """{name: error} of running statistics: a variance in relative L2, a
+    mean in units of its channel's running standard deviation (a mean
+    near 0 has no relative precision)."""
+    out = {}
+    for k, v in want.items():
+        if k.endswith("running_var"):
+            out[k] = rel_l2(got[k], v)
+            mean = k[:-len("var")] + "mean"
+            out[mean] = float((got[mean] - want[mean]).abs().max()
+                              / (v + 1e-5).sqrt().min())
+    return out
+
+
+def global_error(got, want):
+    """Relative L2 error of all the momenta at once."""
+    return rel_l2(torch.cat([got[k].flatten() for k in want]),
+                  torch.cat([v.flatten() for v in want.values()]))
+
+
+def family_train_parity(name, batch=2, tol=1e-3, cudnn_limit=5e-3):
+    """:func:`phase_train_parity` for a batch-normed family or RefineDet,
+    from the same seeded weights (``random_state_dict``; RefineDet's ARM
+    heads moved by :func:`perturbed_arm`), batch (:func:`parity_batch` at
+    the family's size) and augmentation parameters on every side: one
+    step on the card with cuDNN and with cuDNN off (TF32 off), and on the
+    CPU, each in float64 and in float32.
+
+    The float64 steps are held: each tensor's update (its momentum after
+    the step, the gradient plus the weight decay, before the learning
+    rate rounds it to the weight's ulp; :func:`momentum_errors`) and each
+    running statistic (:func:`stats_errors`) within ``tol`` of the CPU's
+    with cuDNN off and ``cudnn_limit`` with cuDNN; the losses within rtol
+    1e-4 and the positives and ignored anchors equal. Every tensor must
+    get a gradient on the CPU.
+
+    The float32 steps are held the same way in their losses, positives,
+    ignored anchors and running statistics. Their updates are printed
+    against the CPU's float32 and float64 steps, not held: in these nets
+    a float32 forward flips the sign of a few dozen ReLU inputs that lie
+    within rounding of 0, and each flip sends the whole gradient at its
+    position the other way, so two float32 steps differ per tensor by
+    more than ``tol`` (the flips against the CPU's float64 step are
+    printed for every float32 step)."""
+    cfg = train_cfg("float32", name)
+    data = parity_batch(batch, cfg=cfg)
+    params = draw_params(batch, torch.Generator().manual_seed(5))
+    weights = random_state_dict(cfg, seed=0)
+    if cfg.MODEL.SSD_TYPE == "RefineDet":
+        weights = perturbed_arm(weights)
+    runs = {}
+    for dtype, tag in (("float64", "_f64"), ("float32", "")):
+        runs["cpu" + tag] = family_parity_step("cpu", dtype, name, weights,
+                                               data, params)
+        runs["card" + tag] = family_parity_step("cuda", dtype, name,
+                                                weights, data, params)
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            runs["card_no_cudnn" + tag] = family_parity_step(
+                "cuda", dtype, name, weights, data, params)
+    exact = runs["cpu_f64"]
+    result = {"phase": "family_train_parity", "cfg": name, "tf32": False,
+              "batch": batch, "tensors": len(exact["momentum"]),
+              "running_stats": len(exact["stats"]),
+              "no_grad_cpu": runs["cpu"]["no_grad"],
+              "no_grad_cpu_f64": exact["no_grad"], "failing": []}
+    for run_name, run in runs.items():
+        ref = exact if run_name.endswith("_f64") else runs["cpu"]
+        line = {k: run[k] for k in ("loss", "num_pos", "ignored")}
+        if run is not ref:
+            limit = tol if "no_cudnn" in run_name else cudnn_limit
+            vs_ref = momentum_errors(run["momentum"], ref["momentum"])
+            stats = stats_errors(run["stats"], ref["stats"])
+            worst = max(vs_ref, key=vs_ref.get)
+            line.update({
+                "limit": limit, "max_vs_cpu": vs_ref[worst],
+                "worst": worst,
+                "within_limit": sum(v <= limit for v in vs_ref.values()),
+                "global_vs_cpu": global_error(run["momentum"],
+                                              ref["momentum"]),
+                "max_stats_vs_cpu": max(stats.values(), default=0.0)})
+            failing = ["{} stat {} {}".format(run_name, k, v)
+                       for k, v in stats.items() if not v <= limit]
+            if run_name.endswith("_f64"):
+                failing += ["{} {} {}".format(run_name, k, v)
+                            for k, v in vs_ref.items() if not v <= limit]
+            if (run["num_pos"], run["ignored"]) != (ref["num_pos"],
+                                                    ref["ignored"]) or \
+                    not math.isclose(run["loss"], ref["loss"],
+                                     rel_tol=1e-4):
+                failing.append("{} loss {} num_pos {} ignored {}".format(
+                    run_name, run["loss"], run["num_pos"], run["ignored"]))
+            result["failing"] += failing
+        if run is not exact:
+            vs_f64 = momentum_errors(run["momentum"], exact["momentum"])
+            line.update({"max_vs_f64": max(vs_f64.values()),
+                         "global_vs_f64": global_error(run["momentum"],
+                                                       exact["momentum"]),
+                         "relu_flips_vs_f64": relu_flips(run["masks"],
+                                                          exact["masks"])})
+        result[run_name] = line
+    result["relu_outputs"] = sum(int(m.numel())
+                                 for m in exact["masks"].values())
+    emit(result)
+    if runs["cpu"]["no_grad"] or exact["no_grad"]:
+        raise AssertionError("{}: tensors without a gradient on the CPU: "
+                             "{}".format(name, runs["cpu"]["no_grad"]))
+    if result["failing"]:
+        raise AssertionError("{}: card step off the CPU's: {}".format(
+            name, result["failing"][:20]))
+    return result
+
+
+def phase_family_train_parity():
+    return [family_train_parity(name) for name in ("rfbnet300_vgg16_voc",
+                                                   "refinedet320_vgg16_voc")]
+
+
+class WatchedSolver:
+    """An ``EvalVOC`` that records, around each validation, whether the
+    model's running statistics came out bit-equal and its mode was
+    handed back."""
+
+    def __init__(self, solver):
+        self.solver, self.seen = solver, []
+
+    @property
+    def last_timing(self):
+        return self.solver.last_timing
+
+    def validate(self, eval_fn):
+        model = eval_fn.model
+        before, mode = running_stats(model), model.training
+        out = self.solver.validate(eval_fn)
+        after = running_stats(model)
+        self.seen.append({"stats_equal": all(torch.equal(v, after[k])
+                                             for k, v in before.items()),
+                          "running_stats": len(before),
+                          "mode_kept": model.training == mode})
+        return out
 
 
 def write_voc_tree(root, sets, seed=0, size=300):
@@ -1054,17 +1381,22 @@ def write_voc_tree(root, sets, seed=0, size=300):
     return images
 
 
-def phase_fit(n_train=64, n_test=64):
-    """Two fit() runs on a seeded VOC tree: 4 steps from a --basenet npz
-    (save at 2 and 4, validate at 4), then an auto-resume to 6 (save and
-    validate at 6)."""
+def phase_fit(name="ssd_vgg16_voc", n_train=64, n_test=64):
+    """Two fit() runs of configuration ``name`` on a seeded VOC tree: 4
+    steps from a --basenet npz (save at 2 and 4, validate at 4), then an
+    auto-resume to 6 (save and validate at 6). One ``nms_rows`` launch
+    per eval batch; each validation leaves the running statistics
+    bit-equal, and a restore of the first run's last checkpoint gives
+    them back bit-equal."""
     build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_fit_",
                             dir=build.BUILD_DIR.parent)
     try:
+        cfg = train_cfg("bfloat16", name)
+        size = cfg.MODEL.IMAGE_SIZE[0]
         images = write_voc_tree(os.path.join(work, "voc"),
-                                (("trainval", n_train), ("test", n_test)))
-        cfg = train_cfg("bfloat16")
+                                (("trainval", n_train), ("test", n_test)),
+                                size=size)
         cfg.DATASET.TEST_SETS = (("2007", "test"),)
         cfg.TRAIN.SAVE_ITER = 2
         cfg.TRAIN.EVAL_ITER = 4
@@ -1081,13 +1413,13 @@ def phase_fit(n_train=64, n_test=64):
             train = DetLoader(
                 VOCDetection(root, (("2007", "trainval"),),
                              reader=images.get),
-                NetworkInput((300, 300)), BATCH, shuffle=True,
+                NetworkInput((size, size)), BATCH, shuffle=True,
                 drop_last=True, num_workers=4)
             test = DetLoader(
                 VOCDetection(root, cfg.DATASET.TEST_SETS, reader=images.get),
-                NetworkInput((300, 300)), BATCH, num_workers=4)
-            return train, EvalVOC(test, cfg, os.path.join(work, "out",
-                                                          "eval"))
+                NetworkInput((size, size)), BATCH, num_workers=4)
+            return train, WatchedSolver(EvalVOC(test, cfg, os.path.join(
+                work, "out", "eval")))
 
         out_dir = os.path.join(work, "out")
         eval_batches = -(-n_test // BATCH)
@@ -1095,9 +1427,10 @@ def phase_fit(n_train=64, n_test=64):
         for max_iter, kw in ((4, {"basenet": basenet}),
                              (6, {"auto_resume": True})):
             cfg.TRAIN.MAX_ITER = max_iter
+            train, solver = loaders()
             reset_counts()
             t0 = time.perf_counter()
-            res = fit(cfg, *loaders(), out_dir, device="cuda", **kw)
+            res = fit(cfg, train, solver, out_dir, device="cuda", **kw)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = counts()
@@ -1106,9 +1439,27 @@ def phase_fit(n_train=64, n_test=64):
                    "seconds": seconds, "step": res["step"],
                    "evals": res["evals"], "ckpt_steps": res["ckpt_steps"],
                    "losses": res["losses"], "launches": launches,
-                   "eval_batches": eval_batches * len(res["evals"])}
+                   "eval_batches": eval_batches * len(res["evals"]),
+                   "validations": solver.seen}
             runs.append(run)
-            if launches["nms_rows"] < run["eval_batches"] \
+            if max_iter == 4:  # the first run's state against its save
+                saved = running_stats(res["state"].model)
+                fresh, _ = create_train_state(cfg, "cuda", seed=1)
+                Checkpointer(os.path.join(out_dir, "ckpt")).restore(fresh)
+                restored = running_stats(fresh.model)
+                run["restore_stats_equal"] = fresh.step == 4 and all(
+                    torch.equal(v, restored[k]) for k, v in saved.items())
+                run["running_stats"] = len(saved)
+                del fresh
+                if not run["restore_stats_equal"]:
+                    raise AssertionError("{}: a restore changed the running "
+                                         "statistics".format(name))
+            if not all(v["stats_equal"] and v["mode_kept"]
+                       for v in solver.seen):
+                raise AssertionError("{}: a validation moved the running "
+                                     "statistics or the model's mode: "
+                                     "{}".format(name, solver.seen))
+            if launches["nms_rows"] != run["eval_batches"] \
                     or launches["nms_mask"] != 0:
                 raise AssertionError("fit made NMS launches {} for {} eval "
                                      "batches".format(launches,
@@ -1126,7 +1477,8 @@ def phase_fit(n_train=64, n_test=64):
                 or [e["step"] for e in second["evals"]] != [6] \
                 or second["losses"][0]["step"] != 5:
             raise AssertionError("fit runs {}".format(runs))
-        result = {"phase": "fit", "dtype": "bfloat16", "batch": BATCH,
+        result = {"phase": "fit", "cfg": name, "dtype": "bfloat16",
+                  "batch": BATCH,
                   "train_images": n_train, "test_images": n_test,
                   "runs": runs, "nms_rows_launches": sum(
                       r["launches"]["nms_rows"] for r in runs),
@@ -1138,18 +1490,30 @@ def phase_fit(n_train=64, n_test=64):
 
 
 def main():
-    info, _ = phase_device()
-    ptxas = phase_build()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    info, _ = timed("device", phase_device)
+    ptxas = timed("build", phase_build)
     cfg = default_cfg()
     priors = torch.from_numpy(
         prior_factory(cfg)(probe_layer_dims(cfg))).cuda()
-    mask, rows = phase_kernel(priors, ptxas)
-    bf16 = phase_main_path("bfloat16")
-    phase_main_path("float32")
-    families = phase_families()
-    train = phase_train()
-    phase_train_parity()
-    fitted = phase_fit()
+    mask, rows = timed("kernel", phase_kernel, priors, ptxas)
+    bf16 = timed("main_path_bf16", phase_main_path, "bfloat16")
+    timed("main_path_f32", phase_main_path, "float32")
+    families = timed("families", phase_families)
+    train = timed("train", phase_train)
+    timed("train_parity", phase_train_parity)
+    family_train = timed("family_train", phase_family_train)
+    timed("family_train_parity", phase_family_train_parity)
+    fitted = timed("fit", phase_fit)
+    fitted_rfb = timed("fit_rfbnet300", phase_fit, "rfbnet300_vgg16_voc")
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -1165,7 +1529,13 @@ def main():
             "DetectOut": bf16["dense"]["launches"][name],
             "families": {f["cfg"]: f["launches"][name] for f in families},
             "train_step": train["launches"][name],
-            "fit": sum(r["launches"][name] for r in fitted["runs"])}
+            "family_train": {f["cfg"]: f["launches"][name]
+                             for f in family_train},
+            "fit": sum(r["launches"][name] for r in fitted["runs"]),
+            "fit_rfbnet300": sum(r["launches"][name]
+                                 for r in fitted_rfb["runs"])}
+    emit({"phase": "seconds", **seconds,
+          "total": time.perf_counter() - t_start})
     emit({"kernels": [mask, rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -118,10 +118,12 @@ def apply(images: Tensor, params: dict) -> Tensor:
 
 
 def preprocess_train_batch(images_u8: Tensor, params: dict | None, mean,
-                           distort: bool = True) -> Tensor:
-    """uint8 BGR [B, H, W, 3] -> float32 RGB, mean subtracted, with the
-    photometric distortion by ``params`` when ``distort``."""
-    img = images_u8.float()
+                           distort: bool = True,
+                           dtype: torch.dtype = torch.float32) -> Tensor:
+    """uint8 BGR [B, H, W, 3] -> RGB in ``dtype`` (float32, or float64 for
+    a float64 step), mean subtracted, with the photometric distortion by
+    ``params`` when ``distort``."""
+    img = images_u8.to(dtype)
     if distort:
         img = apply(img, params)
     img = img - torch.tensor([float(m) for m in mean], device=img.device)

@@ -7,6 +7,11 @@ the model's ``decode`` (RefineDet's is its two-step decode,
 ``train.py:259-268``) -> per-class NMS -> cross-class top rows plus the ``dropped``
 self-audit: how many per-class survivors the row cap discarded (the
 reference keeps every survivor, so nonzero marks a deviation).
+
+The forward runs the model in eval mode, as ``odtpu``'s ``train=False``
+apply does: batch norm normalises with its running statistics and leaves
+them as they are. A model in train mode (the train loop's) is put back
+in train mode after each forward.
 """
 
 from __future__ import annotations
@@ -41,7 +46,12 @@ class EvalStep:
         arm_loc, arm_conf, odm_loc, odm_conf (both confs softmaxed)."""
         if images.dtype == torch.uint8:
             images = (images.float() - self.means).flip(-1)
-        return self.model(images, phase="eval")
+        training = self.model.training
+        self.model.eval()
+        try:
+            return self.model(images, phase="eval")
+        finally:
+            self.model.train(training)
 
     def decode(self, *outputs: Tensor) -> tuple[Tensor, Tensor]:
         """:meth:`forward`'s outputs -> (decoded boxes [B, P, 4], conf
@@ -79,5 +89,6 @@ def dropped(dense: Tensor, rows: Tensor) -> Tensor:
 
 def make_eval_step(model, priors: Tensor, cfg) -> EvalStep:
     """The eval step for ``model`` (a detector of ``cfg``'s family, in
-    eval mode) and ``priors`` (on the device the step runs on)."""
+    either mode: it runs in eval mode) and ``priors`` (on the device the
+    step runs on)."""
     return EvalStep(model, priors, cfg)

@@ -20,9 +20,53 @@ from torch import Tensor, nn
 INITS = ("he_normal", "lecun_normal", "xavier_uniform", "zeros")
 
 
+def float32_or_wider(x: Tensor) -> Tensor:
+    """``x`` in float32, or as it is when wider (a float64 step)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def batch_norm(bn: nn.BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
-    """``bn`` applied in float32 (or wider), cast back to ``dtype``."""
-    return bn(x.to(torch.promote_types(x.dtype, torch.float32))).to(dtype)
+    """``bn`` applied in float32 (or wider), cast back to ``dtype``.
+
+    In eval mode it normalises with the running statistics. In train mode
+    it follows flax's ``nn.BatchNorm(use_running_average=False)``: the
+    batch's mean and *biased* variance over (N, H, W) normalise, as
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running
+    statistics move by ``running = (1 - momentum) * running + momentum *
+    batch_stat`` with that biased variance (``nn.BatchNorm2d`` would take
+    the unbiased one, n / (n - 1) larger, and it refuses one value a
+    channel, where this gives the bias).
+
+    The fused batch norm normalises and hands back the batch's mean and
+    unbiased variance, from which the biased one follows. For one value a
+    channel, which it refuses, the statistics are computed directly, with
+    autograd through them, as flax's are: the variance is 0 and the
+    output the bias.
+    """
+    x = float32_or_wider(x)
+    if not bn.training:
+        return bn(x).to(dtype)
+    weight, bias = bn.weight.to(x.dtype), bn.bias.to(x.dtype)
+    n = x.numel() // x.shape[1]
+    if n > 1:
+        # buffers at 0 that take the batch's statistics whole (momentum
+        # 1): 0 + (stat - 0) is stat exactly
+        mean = torch.zeros_like(bn.running_mean, dtype=x.dtype)
+        var = torch.zeros_like(bn.running_var, dtype=x.dtype)
+        y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, bn.eps)
+        var = var * ((n - 1) / n)
+    else:
+        mean = x.mean((0, 2, 3), keepdim=True)
+        xc = x - mean
+        var = xc.square().mean((0, 2, 3), keepdim=True)
+        mul = torch.rsqrt(var + bn.eps) * weight[:, None, None]
+        y = torch.addcmul(bias[:, None, None], xc, mul)
+    with torch.no_grad():
+        for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            running.mul_(1.0 - bn.momentum).add_(
+                stat.detach().flatten().to(running.dtype),
+                alpha=bn.momentum)
+    return y.to(dtype)
 
 
 class Conv(nn.Module):
@@ -82,7 +126,7 @@ class L2Norm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xf = float32_or_wider(x)
         norm = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True)) + self.eps
         out = xf / norm * self.scale[None, :, None, None]
         return out.to(self.dtype)

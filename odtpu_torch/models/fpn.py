@@ -19,7 +19,7 @@ import torch
 from torch import Tensor, nn
 
 from ..ops.detect import ssd_decode
-from .common import Conv
+from .common import Conv, float32_or_wider
 from .ssd import MultiBoxHead, build_trunk, outputs, run_trunk
 
 
@@ -59,7 +59,7 @@ def upsample_bilinear(x: Tensor, size) -> Tensor:
     oh, ow = int(size[0]), int(size[1])
     if (oh, ow) == (h, w):
         return x
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    xf = float32_or_wider(x)
     wh = _weights(h, oh, x.device).to(xf.dtype)
     ww = _weights(w, ow, x.device).to(xf.dtype)
     return torch.matmul(torch.matmul(wh, xf), ww.t()).to(x.dtype)

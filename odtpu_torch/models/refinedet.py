@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ..ops.detect import refine_decode
-from .common import Conv, L2Norm
+from .common import Conv, L2Norm, float32_or_wider
 from .fpn import upsample_bilinear
 from .ssd import flatten_head
 
@@ -58,8 +58,9 @@ def _head(cin, width, init, dtype):
 
 class RefineDet(nn.Module):
     """``forward(x, phase)`` -> (arm_loc [B,P,4], arm_conf [B,P,2],
-    odm_loc [B,P,4], odm_conf [B,P,C]), float32; the eval phase softmaxes
-    both confs. ``backbone`` taps (conv4_3, conv5_3, conv7)."""
+    odm_loc [B,P,4], odm_conf [B,P,C]), float32 (or wider); the eval
+    phase softmaxes both confs. ``backbone`` taps (conv4_3, conv5_3,
+    conv7)."""
 
     # the two-step decode: (outputs, priors, variances) -> (boxes
     # decoded against the refined anchors, filtered conf)
@@ -95,9 +96,9 @@ class RefineDet(nn.Module):
                                   "xavier_uniform", dtype))
 
     def _heads(self, name, sources, width):
-        return torch.cat([flatten_head(getattr(self, f"{name}_{i}")(s),
-                                       width)
-                          for i, s in enumerate(sources)], 1).float()
+        return float32_or_wider(torch.cat(
+            [flatten_head(getattr(self, f"{name}_{i}")(s), width)
+             for i, s in enumerate(sources)], 1))
 
     def forward(self, x: Tensor, phase: str = "train",
                 return_sources: bool = False):

@@ -2,7 +2,8 @@
 
 Counterpart of ``odtpu/models/ssd.py``. The public boundary is NHWC, as
 in ``odtpu``: the forward takes [B, H, W, 3] images and returns loc
-[B, P, 4] and conf [B, P, C] in float32. Inside, the convs run NCHW.
+[B, P, 4] and conf [B, P, C] in float32 (float64 in a float64 model).
+Inside, the convs run NCHW.
 
 Extras follow the reference's compact spec (ssd_v3.py:245-249):
 alternating 1x1 / 3x3 convs, 'S' = stride-2 pad-1 on the following
@@ -17,7 +18,7 @@ import torch
 from torch import Tensor, nn
 
 from ..ops.detect import ssd_decode
-from .common import Conv, L2Norm
+from .common import Conv, L2Norm, float32_or_wider
 
 EXTRAS_SPEC = {
     "ssd300": [256, "S", 512, 128, "S", 256, 128, 256, 128, 256],
@@ -49,7 +50,8 @@ def flatten_head(x: Tensor, width: int) -> Tensor:
 
 
 class MultiBoxHead(nn.Module):
-    """Per-source 3x3 loc/conf convs -> [B, P, 4] / [B, P, C] in float32.
+    """Per-source 3x3 loc/conf convs -> [B, P, 4] / [B, P, C] in float32
+    (or wider).
 
     The prior order is cell-major, anchor-minor, which is the NHWC
     flatten of each head's output: ``permute(0, 2, 3, 1)`` comes before
@@ -76,7 +78,8 @@ class MultiBoxHead(nn.Module):
             locs.append(flatten_head(getattr(self, f"loc_{i}")(src), 4))
             confs.append(flatten_head(getattr(self, f"conf_{i}")(src),
                                       self.num_classes))
-        return torch.cat(locs, 1).float(), torch.cat(confs, 1).float()
+        return (float32_or_wider(torch.cat(locs, 1)),
+                float32_or_wider(torch.cat(confs, 1)))
 
 
 def outputs(loc: Tensor, conf: Tensor, phase: str, sources,

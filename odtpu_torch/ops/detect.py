@@ -128,21 +128,28 @@ def detect_out_compact(loc: Tensor, conf: Tensor, priors: Tensor, variances,
 _XFORM_CLIP = 4.135166556742356
 
 
-def refine_decode(arm_loc: Tensor, arm_conf: Tensor, odm_loc: Tensor,
-                  odm_conf: Tensor, priors: Tensor, variances,
-                  neg_anchor_thresh: float = 0.99) -> tuple[Tensor, Tensor]:
-    """RefineDet's two-step decode -> (decoded [B, P, 4] point form,
-    conf [B, P, C]): the ARM's offsets refine the priors (their log-scale
-    clamped at ``_XFORM_CLIP``, as ``odtpu`` does for an untrained net
-    whose raw ``arm_loc`` would overflow exp), the ODM's offsets decode
-    against each image's refined anchors, and anchors the ARM holds to be
-    background (P(bg) > ``neg_anchor_thresh``, the paper's test-time
-    filter) score 0."""
+def refine_anchors(arm_loc: Tensor, priors: Tensor, variances) -> Tensor:
+    """The ARM's refined anchors [B, P, 4], center-size: ``arm_loc``
+    decoded against ``priors`` [P, 4], its log-scale clamped at
+    ``_XFORM_CLIP`` (as ``odtpu`` does for an untrained net whose raw
+    ``arm_loc`` would overflow exp)."""
     variances = tuple(float(v) for v in variances)
     clip = _XFORM_CLIP / variances[1]
     arm_loc = torch.cat([arm_loc[..., :2],
                          arm_loc[..., 2:].clamp(-clip, clip)], -1)
-    refined = center_size(decode(arm_loc, priors[None], variances))
+    return center_size(decode(arm_loc, priors[None], variances))
+
+
+def refine_decode(arm_loc: Tensor, arm_conf: Tensor, odm_loc: Tensor,
+                  odm_conf: Tensor, priors: Tensor, variances,
+                  neg_anchor_thresh: float = 0.99) -> tuple[Tensor, Tensor]:
+    """RefineDet's two-step decode -> (decoded [B, P, 4] point form,
+    conf [B, P, C]): the ARM's offsets refine the priors
+    (:func:`refine_anchors`), the ODM's offsets decode
+    against each image's refined anchors, and anchors the ARM holds to be
+    background (P(bg) > ``neg_anchor_thresh``, the paper's test-time
+    filter) score 0."""
+    refined = refine_anchors(arm_loc, priors, variances)
     decoded = decode(odm_loc, refined, variances)  # [B, P, 4], contiguous
     keep = arm_conf[..., 0] <= neg_anchor_thresh
     return decoded, odm_conf * keep[..., None]

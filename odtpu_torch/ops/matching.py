@@ -32,13 +32,15 @@ def match_batch(truths: Tensor, labels: Tensor, priors: Tensor, variances,
     Args:
         truths: [B, G, 4] point-form GT boxes (padding rows arbitrary).
         labels: [B, G] int labels in [0, C-2]; < 0 marks padding.
-        priors: [P, 4] center-size priors.
+        priors: [P, 4] center-size priors, or [B, P, 4]: each image's
+            own (RefineDet's refined anchors, which ``odtpu`` vmaps
+            ``match`` over).
     Returns:
         loc_t [B, P, 4] encoded targets, conf_t [B, P] int64 (0 =
         background, else label + 1), best_truth_idx [B, P] int64.
     """
     B, G, _ = truths.shape
-    P = priors.shape[0]
+    P = priors.shape[-2]
     valid = labels >= 0
     overlaps = jaccard(truths, point_form(priors))  # [B, G, P]
     overlaps = torch.where(valid[..., None], overlaps, -1.0)

@@ -6,7 +6,9 @@ loader until ``TRAIN.MAX_ITER``; the loss and images/s every
 waits for that step and the images/s window is measured on the device's
 clock; a checkpoint every ``SAVE_ITER`` steps and at the end; a
 validation every ``EVAL_ITER`` steps and at the end, through the serving
-path's eval step (the CUDA NMS kernel on a card). Saves and validations
+path's eval step (the CUDA NMS kernel on a card), which runs the model in
+eval mode and hands it back in train mode: batch norm validates with its
+running statistics and leaves them as they are. Saves and validations
 restart the throughput window. Resume and auto-resume read
 ``<out_dir>/ckpt``.
 

@@ -5,7 +5,13 @@ Counterpart of ``odtpu/parallel/train.py`` ``lr_schedule``,
 device:
 
 - the loss is ``(conf + LOC_WEIGHT * loc) / max(num_pos, 1)``, with the
-  forward in ``COMPUTE_DTYPE`` and the loss in float32;
+  forward in ``COMPUTE_DTYPE`` and the loss in float32; RefineDet's is
+  the sum of its ARM's and its ODM's, each over its own ``max(num_pos,
+  1)``, and its ODM matches against the raw anchors for the first
+  ``LOSS.ODM_MATCH_WARM_ITERS`` updates;
+- the model runs in train mode: every batch norm normalises with the
+  batch's statistics and moves its running ones, as flax's
+  ``mutable=["batch_stats"]`` apply does (``models.common.batch_norm``);
 - the schedule is evaluated at the count of updates already made (0 for
   the first), as optax does, and each step sets its learning rate from
   it: the decay boundaries at or past ``MAX_ITER`` are dropped, and the
@@ -14,14 +20,14 @@ device:
   when ``norm > max``, before the weight decay;
 - ``add_decayed_weights`` then ``sgd(momentum)`` is ``torch.optim.SGD``
   with ``weight_decay`` and ``momentum`` over every parameter in one
-  group (biases and the L2Norm scale decay too); Adam likewise. Momentum
-  starts at zero in both packages;
+  group (biases, the L2Norm scales and the batch norms' scale and bias
+  decay too; their running statistics are buffers, not decayed); Adam
+  likewise. Momentum starts at zero in both packages;
 - the photometric distortion of a uint8 batch draws from a generator
   seeded by (17, step), as ``odtpu`` folds the step into ``PRNGKey(17)``,
   so a resumed run draws what an unbroken run draws.
 
-Training covers SSD over VGG16 without batch norm. The other families
-(batch norm in train mode, the RefineDet loss), the repulsion loss and
+Training covers every family of the zoo. The repulsion loss and
 activation checkpointing (``TPU.REMAT``) are not ported yet; the state
 and the step refuse them.
 """
@@ -35,8 +41,8 @@ import torch
 from torch import Tensor, nn
 
 from .data.device_aug import draw_params, preprocess_train_batch
-from .layers.losses import multibox_loss
-from .models import model_factory
+from .layers.losses import multibox_loss, refinedet_loss
+from .models import compute_dtype, model_factory
 
 
 def lr_schedule(cfg):
@@ -81,12 +87,14 @@ def make_optimizer(params, cfg) -> torch.optim.Optimizer:
 def clip_by_global_norm(params, max_norm: float) -> Tensor:
     """Scale every gradient by ``max_norm / norm`` when the global norm is
     above ``max_norm`` (optax's form: ``g / norm * max``, no epsilon);
-    returns the norm. Nothing waits for the device."""
+    returns the norm. A few multi-tensor kernels, whatever the count of
+    tensors; nothing waits for the device."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    # x / 1 * 1 is x: the gradients are left as they are when kept
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
     return norm
 
 
@@ -110,25 +118,15 @@ def create_train_state(cfg, device="cuda", seed: int = 0):
 
 
 def _refuse_unported(cfg) -> None:
-    """Training covers SSD over VGG16 without batch norm only: the other
-    families (batch norm in train mode, the RefineDet loss) are ROADMAP
-    Queue 1 item 1, the repulsion loss and remat its item 3."""
-    m = cfg.MODEL
-    family = "{} over {}{}".format(m.SSD_TYPE, m.BASE,
-                                   " with batch norm" if m.BATCH_NORM
-                                   else "")
-    for what, on, where in (
-            ("training " + family,
-             m.SSD_TYPE not in ("SSD", "SSD_COCO") or m.BASE != "vgg16"
-             or bool(m.BATCH_NORM), "item 1, training the other families"),
+    """The repulsion loss and remat are ROADMAP Queue 1's extras."""
+    for what, on in (
             ("the repulsion loss (LOSS.REPULSION_WEIGHT > 0)",
-             float(cfg.LOSS.REPULSION_WEIGHT) > 0, "item 3, the extras"),
-            ("activation checkpointing (TPU.REMAT)", bool(cfg.TPU.REMAT),
-             "item 3, the extras")):
+             float(cfg.LOSS.REPULSION_WEIGHT) > 0),
+            ("activation checkpointing (TPU.REMAT)", bool(cfg.TPU.REMAT))):
         if on:
             raise NotImplementedError(
-                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1 "
-                "{})".format(what, where))
+                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1, "
+                "the extras)".format(what))
 
 
 class TrainStep:
@@ -154,9 +152,14 @@ class TrainStep:
         self.overlap = float(cfg.LOSS.OVERLAP_THRESH)
         self.negpos = int(cfg.LOSS.NEG_POS_RATIO)
         self.loc_w = float(cfg.LOSS.LOC_WEIGHT)
+        self.refinedet = cfg.MODEL.SSD_TYPE == "RefineDet"
+        self.odm_warm = int(cfg.LOSS.ODM_MATCH_WARM_ITERS)
         self.device_photo = bool(cfg.DATASET.DEVICE_PHOTOMETRIC)
         self.distort = bool(cfg.DATASET.PHOTOMETRIC)
         self.means = tuple(float(m) for m in cfg.DATASET.PIXEL_MEANS)
+        # the distortion in float32, or float64 for a float64 step
+        self.input_dtype = torch.promote_types(compute_dtype(cfg),
+                                               torch.float32)
         self.clip = float(cfg.TRAIN.OPTIMIZER.CLIP_GRAD_NORM or 0.0)
         self.sched = lr_schedule(cfg)
 
@@ -178,14 +181,29 @@ class TrainStep:
         if self.distort and aug_params is None:
             aug_params = self.aug_params(images.shape[0], step)
         return preprocess_train_batch(images, aug_params, self.means,
-                                      self.distort)
+                                      self.distort, self.input_dtype)
 
-    def forward(self, state: TrainState, images: Tensor):
+    def forward(self, state: TrainState, images: Tensor) -> tuple:
+        """The model's raw outputs: (loc, conf), RefineDet's (arm_loc,
+        arm_conf, odm_loc, odm_conf)."""
         return state.model(images, phase="train")
 
-    def loss(self, loc: Tensor, conf: Tensor, boxes: Tensor,
-             labels: Tensor) -> dict:
-        out = multibox_loss(loc, conf, self.priors, boxes, labels,
+    def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
+             step: int) -> dict:
+        """The metrics of :meth:`forward`'s ``outputs`` at update ``step``
+        (the count of updates already made)."""
+        if self.refinedet:
+            r = refinedet_loss(*outputs, self.priors, boxes, labels,
+                               self.variances, self.overlap, self.negpos,
+                               use_refined=step >= self.odm_warm)
+            loss_l = loss_c = 0.0
+            for part in r:
+                n = torch.clamp(part.num_pos, min=1).float()
+                loss_l = loss_l + self.loc_w * part.loss_loc_sum / n
+                loss_c = loss_c + part.loss_conf_sum / n
+            return {"loss": loss_l + loss_c, "loss_loc": loss_l,
+                    "loss_conf": loss_c, "num_pos": r.odm.num_pos}
+        out = multibox_loss(*outputs, self.priors, boxes, labels,
                             self.variances, self.overlap, self.negpos)
         n = torch.clamp(out.num_pos, min=1).float()
         loss_l = out.loss_loc_sum / n
@@ -196,6 +214,12 @@ class TrainStep:
     def backward(self, state: TrainState, metrics: dict) -> None:
         state.optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        # a weight the loss does not reach (DRN_SSD's last stages) gets a
+        # zero gradient, so that it decays as optax decays it
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
 
     def update(self, state: TrainState) -> None:
         if self.clip > 0:
@@ -211,9 +235,9 @@ class TrainStep:
                  labels: Tensor, aug_params: dict | None = None) -> dict:
         images = self.augment(images.to(self.device, non_blocking=True),
                               state.step, aug_params)
-        loc, conf = self.forward(state, images)
-        metrics = self.loss(loc, conf, boxes.to(self.device),
-                            labels.to(self.device))
+        metrics = self.loss(self.forward(state, images),
+                            boxes.to(self.device), labels.to(self.device),
+                            state.step)
         self.backward(state, metrics)
         self.update(state)
         return {k: v.detach() for k, v in metrics.items()}

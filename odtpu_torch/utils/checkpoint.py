@@ -62,7 +62,8 @@ def _to_port(key: str, value: np.ndarray):
 def to_odtpu_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """A torch state dict -> ``odtpu``'s flat npz map (the inverse of
     :func:`from_odtpu_params`): param paths, and the batch-norm running
-    statistics under ``__batch_stats__/``, as float32 numpy."""
+    statistics under ``__batch_stats__/``, as float32 numpy arrays of
+    their own (a later update of the model leaves them as they are)."""
     inverse = {v: k for k, v in _LEAVES.items()}
     bn_inverse = {v: (False, k) for k, v in _BN_LEAVES.items()}
     bn_inverse.update({v: (True, k) for k, v in _BN_STATS.items()})
@@ -71,7 +72,7 @@ def to_odtpu_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
         *path, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        arr = value.detach().cpu().float().numpy()
+        arr = np.array(value.detach().cpu().float())  # an owned copy
         if path and path[-1] in _BN_MODULES:
             stats, leaf = bn_inverse[leaf]
         else:

@@ -70,6 +70,10 @@ def default_cfg() -> AttrDict:
     # read only to refuse a nonzero weight: the repulsion loss is not
     # ported yet
     C.LOSS.REPULSION_WEIGHT = 0.0
+    # RefineDet: the ODM matches against the raw anchor grid, with no
+    # negative-anchor filtering, for this many first updates, then
+    # against the ARM-refined anchors; 0 = refined from the start
+    C.LOSS.ODM_MATCH_WARM_ITERS = 0
 
     C.TRAIN = AttrDict()
     C.TRAIN.MAX_ITER = 120000

@@ -1,6 +1,7 @@
 """The CUDA greedy-NMS kernel's two entries against their plain twins,
-the serving path's launches (SSD300 and RefineDet320) and one train step
-against the CPU's, on a card.
+the serving path's launches (SSD300 and RefineDet320) and train steps
+(SSD300, and SSD300 over DRN-D-22 with its batch norms) against the
+CPU's, on a card.
 
 These tests need a CUDA card and skip without one. This file imports no
 JAX, so on the card's machine it runs without the repo's conftest:
@@ -147,3 +148,30 @@ def test_train_step_on_card_matches_cpu(priors):
     assert result["no_grad_f64"] == []
     assert result["card_no_cudnn"]["within_1e-3"] == 71
     assert result["card"]["num_pos"] == result["num_pos_cpu"] > 0
+
+
+def test_batch_normed_train_step_on_card_matches_cpu(priors):
+    """SSD300 over DRN-D-22, a norm after every conv: one float32 step
+    (TF32 off, B=2) on the card and on the CPU from the same seeded
+    weights, batch and augmentation parameters. The losses agree within
+    rtol 1e-4, num_pos is equal, and every running statistic after the
+    step lies within 1e-4 of the CPU's (``chip_smoke.stats_errors``: a
+    variance in relative L2, a mean in units of its channel's standard
+    deviation), all of them moved from init."""
+    name = "ssd_drn22_voc"
+    cfg = chip_smoke.train_cfg("float32", name)
+    batch = chip_smoke.parity_batch(2, cfg=cfg)
+    params = chip_smoke.draw_params(2, torch.Generator().manual_seed(5))
+    weights = random_state_dict(cfg, seed=0)
+    card = chip_smoke.family_parity_step("cuda", "float32", name, weights,
+                                         batch, params)
+    cpu = chip_smoke.family_parity_step("cpu", "float32", name, weights,
+                                        batch, params)
+    assert card["num_pos"] == cpu["num_pos"] > 0
+    assert abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"])
+    stats = chip_smoke.stats_errors(card["stats"], cpu["stats"])
+    assert len(stats) == len(cpu["stats"]) > 0
+    assert max(stats.values()) <= 1e-4, max(stats, key=stats.get)
+    init = {k: v for k, v in weights.items() if k in cpu["stats"]}
+    assert all(not torch.equal(cpu["stats"][k].float(), v)
+               for k, v in init.items())

@@ -9,7 +9,11 @@ Tolerances, and why:
   1e-5 (an ulp of the largest targets, ~100, is 8e-6);
 - the mined loss: the positive and mined-negative masks equal on logits
   whose CE values are distinct, the sums within rtol 1e-5 (sums of
-  ~10^4 terms taken in another order), num_pos equal;
+  ~10^4 terms taken in another order), num_pos equal; with ignored
+  priors too;
+- RefineDet's loss: num_pos equal, the four sums within rtol 1e-5 and
+  the gradients of their total within 1e-5 of each input's largest
+  (the same sums, and exp/log of the refined anchors an ulp apart);
 - the photometric distortion fed odtpu's own draws: atol 1e-3 on the
   0-255 scale (the HSV round trip divides and takes remainders);
 - the unsorted NMS mask: equal (pure selection on the same arithmetic).
@@ -297,3 +301,128 @@ def test_draw_params_are_seeded_and_in_range():
     for k in ("do_brightness", "contrast_first", "do_contrast",
               "do_saturation", "do_hue", "do_perm"):
         assert 0.45 < float(a[k].float().mean()) < 0.55, k
+
+
+def test_match_batch_per_image_priors_matches_odtpu(rng, priors):
+    """[B, P, 4] priors, each image's own (RefineDet's refined anchors),
+    against ``odtpu``'s ``match`` vmapped over them."""
+    gt, labels = _gt_batch(rng)
+    B = gt.shape[0]
+    per_image = priors[None] * rng.uniform(0.8, 1.2, (B,) + priors.shape)
+    per_image = per_image.astype(np.float32)
+    loc_t, conf_t, idx = matching.match_batch(_t(gt), _t(labels),
+                                              _t(per_image), VARS, 0.5)
+    jloc, jconf, jidx = jax.vmap(
+        lambda g, l, p: jmatching.match(g, l, p, VARS, 0.5))(
+        jnp.asarray(gt), jnp.asarray(labels, jnp.int32),
+        jnp.asarray(per_image))
+    assert int((conf_t > 0).sum()) > 0
+    np.testing.assert_array_equal(conf_t.numpy(), np.asarray(jconf))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(loc_t.numpy(), np.asarray(jloc), rtol=0,
+                               atol=1e-5)
+    # image 0 against the shared priors is match_batch's own answer
+    shared = matching.match_batch(_t(gt[:1]), _t(labels[:1]),
+                                  _t(per_image[0]), VARS, 0.5)
+    assert torch.equal(shared[1][0], conf_t[0])
+
+
+@pytest.mark.parametrize("n_pos", [0, 3, 20])
+def test_mined_multibox_with_ignore_matches_odtpu(rng, n_pos):
+    """A third of the priors ignored, positives among them: they leave
+    the negative pool, and the positives still train."""
+    B, P, C = 3, 50, 21
+    loc = rng.randn(B, P, 4).astype(np.float32)
+    loc_t = rng.randn(B, P, 4).astype(np.float32)
+    conf = (rng.randn(B, P, C) * 3).astype(np.float32)
+    conf_t = np.zeros((B, P), np.int64)
+    for b in range(B):
+        conf_t[b, rng.permutation(P)[:n_pos + b]] = rng.randint(
+            1, C, n_pos + b)
+    ignore = rng.rand(B, P) < 0.33
+    got = losses.mined_multibox(_t(loc), _t(conf), _t(loc_t), _t(conf_t),
+                                ignore=_t(ignore))
+    want = jlosses.mined_multibox(jnp.asarray(loc), jnp.asarray(conf),
+                                  jnp.asarray(loc_t),
+                                  jnp.asarray(conf_t, jnp.int32),
+                                  ignore=jnp.asarray(ignore))
+    assert int(got.num_pos) == int(want.num_pos)
+    np.testing.assert_allclose(float(got.loss_loc_sum),
+                               float(want.loss_loc_sum), rtol=1e-5)
+    np.testing.assert_allclose(float(got.loss_conf_sum),
+                               float(want.loss_conf_sum), rtol=1e-5)
+
+    logits = _t(conf)
+    ce = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, torch.clamp(_t(conf_t), min=0)[..., None])[..., 0]
+    pos, neg = losses.mining_masks(ce, _t(conf_t), ignore=_t(ignore))
+    grad = jax.grad(lambda c: jlosses.mined_multibox(
+        jnp.asarray(loc), c, jnp.asarray(loc_t),
+        jnp.asarray(conf_t, jnp.int32),
+        ignore=jnp.asarray(ignore)).loss_conf_sum)(jnp.asarray(conf))
+    np.testing.assert_array_equal((pos | neg).numpy(),
+                                  np.abs(np.asarray(grad)).sum(-1) > 0)
+    assert not (neg & _t(ignore)).any()
+    # ignored positives still train: the loc sum is the one without ignore
+    plain = losses.mined_multibox(_t(loc), _t(conf), _t(loc_t), _t(conf_t))
+    assert bool((pos & _t(ignore)).any())
+    assert torch.equal(got.loss_loc_sum, plain.loss_loc_sum)
+
+
+def _refinedet_outputs(rng, P, B=2, C=21):
+    """Seeded raw ARM/ODM outputs: a tenth of the ARM log-scales past the
+    clamp, and a third of the anchors background to the ARM with P > 0.99
+    (logits 6 apart)."""
+    arm_loc = (rng.randn(B, P, 4) * 0.5).astype(np.float32)
+    wild = rng.rand(B, P) < 0.1
+    arm_loc[..., 2:][wild] = rng.choice([-60.0, 60.0], (wild.sum(), 2))
+    arm_conf = rng.randn(B, P, 2).astype(np.float32)
+    arm_conf[..., 0] += np.where(rng.rand(B, P) < 0.33, 6.0, 0.0)
+    odm_loc = (rng.randn(B, P, 4) * 0.5).astype(np.float32)
+    odm_conf = (rng.randn(B, P, C) * 2).astype(np.float32)
+    return arm_loc, arm_conf, odm_loc, odm_conf
+
+
+@pytest.mark.parametrize("use_refined", [True, False])
+def test_refinedet_loss_matches_odtpu(rng, priors, use_refined):
+    from odtpu_torch.ops.detect import _XFORM_CLIP
+
+    gt, labels = _gt_batch(rng)
+    B, P = gt.shape[0], priors.shape[0]
+    outs = _refinedet_outputs(rng, P, B)
+    assert (np.abs(outs[0][..., 2:]) > _XFORM_CLIP / VARS[1]).any()
+    bg = np.exp(outs[1][..., 0]) / np.exp(outs[1]).sum(-1)
+    assert 0.1 < (bg > 0.99).mean() < 0.5
+
+    def total(r):
+        return (r.arm.loss_loc_sum + r.arm.loss_conf_sum
+                + r.odm.loss_loc_sum + r.odm.loss_conf_sum)
+
+    jouts = [jnp.asarray(o) for o in outs]
+    want, jgrads = jax.value_and_grad(
+        lambda *o: total(jlosses.refinedet_loss(
+            *o, jnp.asarray(priors), jnp.asarray(gt),
+            jnp.asarray(labels, jnp.int32), VARS,
+            use_refined=use_refined)), argnums=(0, 1, 2, 3))(*jouts)
+    jr = jlosses.refinedet_loss(*jouts, jnp.asarray(priors), jnp.asarray(gt),
+                                jnp.asarray(labels, jnp.int32), VARS,
+                                use_refined=use_refined)
+    touts = [_t(o).requires_grad_(True) for o in outs]
+    r = losses.refinedet_loss(*touts, _t(priors), _t(gt), _t(labels), VARS,
+                              use_refined=use_refined)
+    total(r).backward()
+    for part, jpart in ((r.arm, jr.arm), (r.odm, jr.odm)):
+        assert int(part.num_pos) == int(jpart.num_pos) > 0
+        for a, b in zip(part[:2], jpart[:2]):
+            np.testing.assert_allclose(a.item(), float(b), rtol=1e-5)
+    for t, g in zip(touts, jgrads):
+        g = np.asarray(g)
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=0,
+                                   atol=1e-5 * np.abs(g).max())
+    # the refined anchors and the filter are outside autograd: the ARM's
+    # gradient is its own loss's, which is use_refined's to not change
+    arm_only = [_t(o).requires_grad_(True) for o in outs[:2]]
+    losses.multibox_loss(*arm_only, _t(priors), _t(gt),
+                         _t(np.where(labels >= 0, 0, -1)), VARS) \
+        .loss_loc_sum.backward()
+    assert torch.equal(arm_only[0].grad, touts[0].grad)

@@ -191,16 +191,28 @@ def test_from_odtpu_params_is_strict(models, tmp_path):
 @pytest.mark.parametrize("ssd_type,base", [("FPN", "vgg16"),
                                            ("SSD", "drn_d_22")])
 def test_unported_families_raise(ssd_type, base):
-    """Every family serves (tests/test_torch_families.py); training them
-    is not ported yet, and both train entry points say where it is
-    queued."""
+    """The families once refused by the train entry points now train:
+    one float32 step at batch 1 from the seeded init, every loss finite,
+    num_pos > 0, the weights moved (and, over DRN-D-22, the running
+    statistics of its batch norms)."""
     cfg = default_cfg()
     cfg.MODEL.SSD_TYPE, cfg.MODEL.BASE = ssd_type, base
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
     assert create_model(cfg)[0] is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        create_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        make_train_step(torch.zeros(1, 4), cfg)
+    state, priors = create_train_state(cfg, device="cpu")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -100, 100, (1, 300, 300, 3)).astype(np.float32))
+    boxes = torch.tensor([[[0.2, 0.2, 0.7, 0.7]]])
+    metrics = make_train_step(priors, cfg)(state, x, boxes,
+                                           torch.tensor([[3]]))
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert int(metrics["num_pos"]) > 0 and state.step == 1
+    after = state.model.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k])}
+    assert any(k.startswith("head.") for k in moved)
+    assert any(k.endswith("running_var") for k in moved) == (base != "vgg16")
 
 
 def test_probe_layer_dims_ssd300():

@@ -117,14 +117,17 @@ def test_two_optimizer_steps_match_optax(rng, name):
 
 
 def test_train_step_refuses_unported_parts():
-    for key, value in (("MODEL.SSD_TYPE", "RefineDet"),
-                       ("LOSS.REPULSION_WEIGHT", 0.1),
+    for key, value in (("LOSS.REPULSION_WEIGHT", 0.1),
                        ("TPU.REMAT", True)):
         cfg = default_cfg()
         node, leaf = key.split(".")
         cfg[node][leaf] = value
         with pytest.raises(NotImplementedError, match="not ported"):
             train_step.make_train_step(torch.zeros(1, 4), cfg)
+    # RefineDet trains: its step takes the two-step loss
+    cfg = default_cfg()
+    cfg.MODEL.SSD_TYPE = "RefineDet"
+    assert train_step.make_train_step(torch.zeros(1, 4), cfg).refinedet
     step = train_step.make_train_step(torch.zeros(1, 4), default_cfg())
     with pytest.raises(TypeError, match="DEVICE_PHOTOMETRIC"):
         step.augment(torch.zeros(1, 4, 4, 3, dtype=torch.uint8), 0)
