@@ -77,16 +77,56 @@ Phases, each printing one JSON line:
    must, and the updates are printed beside the ReLU sign flips that
    put them off (see :func:`family_train_parity`).
 10. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
-   temporary directory under ``build/`` (XML and ImageSets; the images
-   served from memory through the reader): a first run from a
+   temporary directory under ``build/`` (PPM images at the network's
+   size, read by ``data.image.imread``, XML and ImageSets), through the
+   pass-through transform: a first run from a
    ``--basenet`` npz saves and validates, a second auto-resumes from its
    checkpoint, saves and validates again. Each validation scores VOC mAP
    through the serving path, so ``nms_rows`` must launch once per eval
    batch. Then the same two runs of RFBNet300: each validation must
    leave its running statistics bit-equal, and a restore of the first
    run's checkpoint must give them back bit-equal.
-Then each phase's seconds, the ``kernels`` line, and last ``{"ok": true,
-"device": ...}``, printed only when every phase passed.
+11. data: the host pipeline on the card's host, with no OpenCV: a seeded
+   VOC tree of 1536 PPM images (48 batches an epoch, so that no figure
+   crosses an epoch's end, where the loader restarts its threads) at
+   VOC's sizes (500x375, 375x500, 500x333 and odd ones), 1-4 boxes each,
+   some difficult. The C++ sampler (``data.native.fused_sample_u8``) must
+   equal its numpy twin bit for bit on the windows SSDAugmentation draws
+   for 64 items and on the edge cases (a 1-pixel window, a window in the
+   fill, a flip, exact 2x up and down); each is timed per item. Then the
+   train loader's images/s (``dataset_factory("train")``) on the float
+   host path (the default) and the uint8 device-photometric one, at 1 and
+   8 workers after their first round, with the cores the process kept
+   busy, beside ``os.cpu_count()`` and the affinity, and the ms an item
+   of reading and of each mode's transform in one thread; and SSD300 bf16
+   train steps at batch 32 fed by the loader (8 workers) in each mode,
+   the metrics read a step late as ``fit`` reads them, 20 of them timed
+   once the prefetch queue has drained: ms per step, split into waiting
+   for a batch, the step's call and reading its metrics, the wait's
+   share, the busy cores, and the same 20 batches again with no loader
+   running; every loss finite with num_pos > 0, the sampler called on
+   the uint8 path only.
+12. cli: the two command lines at full width on such a tree (1024 + 64
+   images): ``odtpu_torch.train``'s ``setup`` and ``run`` train SSD300
+   (bf16, batch 32, the float host path, 8 workers) for 20 steps, inside
+   one epoch, from a
+   ``--basenet`` npz, save at 10 and 20, validate at 20, and trace steps
+   11-20 with ``--profile_dir`` (the trace must exist; its kernel events
+   give the card's busy share of the window); then ``odtpu_torch.eval``'s
+   ``setup`` and ``run`` score the last checkpoint (``--ckpt``): its mAP
+   and its detection files must equal the train run's last validation.
+   ``nms_rows`` must launch once per eval batch in each, ``nms_mask``
+   never.
+13. coco: a seeded COCO tree (``instances_minival2014.json``, 64 PPM
+   images at 640x480 and 480x640, the 80 category ids): the eval command
+   line on ``ssd_vgg16_coco`` with the seeded served weights as an npz
+   (``--model_npz``) gives mAP@0.5 and mAP@[.5:.95] in [0, 1] with one
+   ``nms_rows`` launch per batch; ``EvalCOCO`` fed the ground truth as
+   its rows scores 1.0 and 1.0.
+Each tree goes under ``build/`` and is removed after its phase. Then each
+phase's seconds, the ``kernels`` line (the host sampler under ``host``),
+and last ``{"ok": true, "device": ...}``, printed only when every phase
+passed.
 """
 
 import gc
@@ -97,16 +137,20 @@ import re
 import shutil
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from odtpu_torch import eval_step
+from odtpu_torch import eval_step, train
+from odtpu_torch.data import augment, dataset_factory, native
 from odtpu_torch.data.device_aug import draw_params
+from odtpu_torch.data.image import write_ppm
 from odtpu_torch.data.loader import DetLoader, NetworkInput
 from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
-from odtpu_torch.eval.evaluator import EvalVOC
+from odtpu_torch.eval import cli
+from odtpu_torch.eval.evaluator import EvalVOC, eval_solver_factory
 from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
 from odtpu_torch.models import create_model, probe_layer_dims
@@ -117,7 +161,7 @@ from odtpu_torch.ops.cuda import build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
-from odtpu_torch.utils.checkpoint import Checkpointer
+from odtpu_torch.utils.checkpoint import Checkpointer, to_odtpu_params
 from odtpu_torch.utils.config import default_cfg, load_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -1338,47 +1382,52 @@ class WatchedSolver:
         return out
 
 
-def write_voc_tree(root, sets, seed=0, size=300):
+def write_voc_tree(root, sets, seed=0, sizes=((300, 300),)):
     """A seeded VOC tree under ``root``: for each (set name, count), that
-    many uint8 images of noise with 1-3 solid class-coloured boxes, their
-    XML and the ImageSets list. Returns {image path: image}, the images
-    the reader serves (no JPEG is written: the port has no decoder)."""
+    many uint8 images of noise, (h, w) cycling through ``sizes``, with
+    1-4 solid class-coloured boxes (each after the first marked difficult
+    with probability 0.2), their XML and the ImageSets list. The images
+    are binary PPM under VOC's ``JPEGImages/<id>.jpg`` names, which
+    ``data.image.imread`` reads without OpenCV. Returns the image count."""
     rng = np.random.RandomState(seed)
     palette = rng.randint(30, 255, (len(VOC_CLASSES), 3))
     base = os.path.join(root, "VOC2007")
     for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
                                                             "Main")):
         os.makedirs(os.path.join(base, sub), exist_ok=True)
-    images, n = {}, 0
+    n = 0
     for setname, count in sets:
         ids = []
         for _ in range(count):
             img_id = "%06d" % n
+            h, w = sizes[n % len(sizes)]
             n += 1
             ids.append(img_id)
-            img = rng.randint(0, 255, (size, size, 3)).astype(np.uint8)
+            img = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
             objs = []
-            for _ in range(rng.randint(1, 4)):
-                x1, y1 = rng.randint(0, size - 60, 2)
-                x2 = rng.randint(x1 + 30, min(x1 + size // 2, size))
-                y2 = rng.randint(y1 + 30, min(y1 + size // 2, size))
+            for k in range(rng.randint(1, 5)):
+                x1 = rng.randint(0, w - 60)
+                y1 = rng.randint(0, h - 60)
+                x2 = rng.randint(x1 + 30, min(x1 + w // 2, w) + 1)
+                y2 = rng.randint(y1 + 30, min(y1 + h // 2, h) + 1)
                 cls = rng.randint(len(VOC_CLASSES))
                 img[y1:y2, x1:x2] = palette[cls]
                 objs.append(
-                    "<object><name>{}</name><difficult>0</difficult>"
+                    "<object><name>{}</name><difficult>{}</difficult>"
                     "<bndbox><xmin>{}</xmin><ymin>{}</ymin><xmax>{}</xmax>"
                     "<ymax>{}</ymax></bndbox></object>".format(
-                        VOC_CLASSES[cls], x1 + 1, y1 + 1, x2, y2))
-            images[os.path.join(base, "JPEGImages", img_id + ".jpg")] = img
+                        VOC_CLASSES[cls], int(k > 0 and rng.rand() < 0.2),
+                        x1 + 1, y1 + 1, x2, y2))
+            write_ppm(os.path.join(base, "JPEGImages", img_id + ".jpg"), img)
             with open(os.path.join(base, "Annotations", img_id + ".xml"),
                       "w") as f:
-                f.write("<annotation><size><width>{0}</width><height>{0}"
-                        "</height><depth>3</depth></size>{1}</annotation>"
-                        .format(size, "".join(objs)))
+                f.write("<annotation><size><width>{}</width><height>{}"
+                        "</height><depth>3</depth></size>{}</annotation>"
+                        .format(w, h, "".join(objs)))
         with open(os.path.join(base, "ImageSets", "Main", setname + ".txt"),
                   "w") as f:
             f.write("\n".join(ids) + "\n")
-    return images
+    return n
 
 
 def phase_fit(name="ssd_vgg16_voc", n_train=64, n_test=64):
@@ -1394,9 +1443,9 @@ def phase_fit(name="ssd_vgg16_voc", n_train=64, n_test=64):
     try:
         cfg = train_cfg("bfloat16", name)
         size = cfg.MODEL.IMAGE_SIZE[0]
-        images = write_voc_tree(os.path.join(work, "voc"),
-                                (("trainval", n_train), ("test", n_test)),
-                                size=size)
+        write_voc_tree(os.path.join(work, "voc"),
+                       (("trainval", n_train), ("test", n_test)),
+                       sizes=((size, size),))
         cfg.DATASET.TEST_SETS = (("2007", "test"),)
         cfg.TRAIN.SAVE_ITER = 2
         cfg.TRAIN.EVAL_ITER = 4
@@ -1411,13 +1460,12 @@ def phase_fit(name="ssd_vgg16_voc", n_train=64, n_test=64):
 
         def loaders():
             train = DetLoader(
-                VOCDetection(root, (("2007", "trainval"),),
-                             reader=images.get),
+                VOCDetection(root, (("2007", "trainval"),)),
                 NetworkInput((size, size)), BATCH, shuffle=True,
                 drop_last=True, num_workers=4)
-            test = DetLoader(
-                VOCDetection(root, cfg.DATASET.TEST_SETS, reader=images.get),
-                NetworkInput((size, size)), BATCH, num_workers=4)
+            test = DetLoader(VOCDetection(root, cfg.DATASET.TEST_SETS),
+                             NetworkInput((size, size)), BATCH,
+                             num_workers=4)
             return train, WatchedSolver(EvalVOC(test, cfg, os.path.join(
                 work, "out", "eval")))
 
@@ -1489,6 +1537,492 @@ def phase_fit(name="ssd_vgg16_voc", n_train=64, n_test=64):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# VOC's common image sizes (h, w) and a few odd ones, for the data phases
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (281, 500),
+             (217, 301), (480, 96), (353, 499))
+
+
+def sampler_windows(root, n):
+    """The sampler's arguments for the first ``n`` items of a tree's
+    trainval set: the windows SSDAugmentation's device-photometric path
+    draws (seeded), then the edge cases: a 1-pixel window, a window wholly
+    in the fill, a flip, and resizes by exactly 2x up and down."""
+    ds = VOCDetection(root, (("2007", "trainval"),))
+    fill = np.rint(np.array(default_cfg().DATASET.PIXEL_MEANS)).astype(
+        np.uint8)
+    cases = []
+    for i in range(n):
+        item = ds[i]
+        h, w, _ = item["image"].shape
+        rng = np.random.default_rng(i)
+        boxes = item["boxes"] * np.array([w, h, w, h], np.float32)
+        (top, left, rect), _, _ = augment.sample_expand_crop_geometry(
+            (h, w), boxes, item["labels"], rng)
+        cases.append((item["image"], top, left, rect,
+                      bool(rng.integers(2)), fill, (300, 300)))
+    img = ds[0]["image"]
+    h, w, _ = img.shape
+    cases += [(img, 0, 0, (5, 7, 6, 8), False, fill, (300, 300)),
+              (img, h + 10, w + 10, (0, 0, w, h), False, fill, (300, 300)),
+              (img, 3, 4, (0, 0, w + 8, h + 6), True, fill, (300, 300)),
+              (img, 0, 0, (0, 0, w, h), False, fill, (2 * h, 2 * w)),
+              (img[:h - h % 2, :w - w % 2], 0, 0,
+               (0, 0, w - w % 2, h - h % 2), False, fill,
+               (h // 2, w // 2))]
+    return cases
+
+
+def item_ms(root, n=32):
+    """ms an item, in one thread, of the loader's parts for the first
+    ``n`` items of a tree's trainval set: reading (the PPM decode and the
+    XML), and each mode's transform (seeded draws)."""
+    ds = VOCDetection(root, (("2007", "trainval"),))
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(n)]
+    out = {"read": 1e3 * (time.perf_counter() - t0) / n}
+    for mode, kw in (("float", {}), ("uint8", {"device_photometric": True})):
+        aug = augment.SSDAugmentation(**kw)
+        t0 = time.perf_counter()
+        for i, item in enumerate(items):
+            aug(item["image"], item["boxes"], item["labels"],
+                np.random.default_rng(i))
+        out[mode] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def loader_threads_joined(timeout=60.0):
+    """Wait for every loader thread to end (each finishes the batch it
+    holds), so that none still works in the next measurement."""
+    for t in threading.enumerate():
+        if t.name.startswith("DetLoader-worker-"):
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError(t.name + " did not stop")
+
+
+def loader_rate(cfg, batches):
+    """``dataset_factory("train", cfg)`` over ``batches`` batches after
+    its first round (one batch a worker, made side by side), inside one
+    epoch: images/s, and the process's CPU seconds a second over them,
+    the cores the workers kept busy."""
+    loader = dataset_factory("train", cfg)
+    skip = cfg.DATASET.NUM_WORKERS
+    if skip + batches > len(loader):
+        raise ValueError("{} + {} batches cross the epoch of {}".format(
+            skip, batches, len(loader)))
+    it = iter(loader)
+    for _ in range(skip):
+        next(it)
+    t0, c0 = time.perf_counter(), time.process_time()
+    for _ in range(batches):
+        next(it)
+    wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+    it.close()
+    loader_threads_joined()
+    return {"images_per_s": batches * cfg.DATASET.TRAIN_BATCH_SIZE / wall,
+            "cores_busy": cpu / wall, "skipped": skip, "batches": batches,
+            "epoch_batches": len(loader)}
+
+
+def step_loop(state, step, batches, n, keep=0):
+    """``n`` train steps over the iterator ``batches``, the metrics read a
+    step late as ``fit`` reads them. Returns, as each step starts and
+    after the last read, (time, {the seconds so far spent waiting for a
+    batch, in the step's call (its H2D copies and the dispatch of its
+    ops), reading the metrics (waiting for the device)}, CPU time); the
+    metrics; and the last ``keep`` batches."""
+    acc = {"wait": 0.0, "call": 0.0, "read": 0.0}
+    marks, metrics, prev, kept = [], [], None, []
+    for i in range(n):
+        marks.append((time.perf_counter(), dict(acc), time.process_time()))
+        t0 = time.perf_counter()
+        b = next(batches)
+        t1 = time.perf_counter()
+        m = step(state, torch.from_numpy(b["images"]),
+                 torch.from_numpy(b["boxes"]), torch.from_numpy(b["labels"]))
+        t2 = time.perf_counter()
+        if prev is not None:
+            metrics.append({k: float(v) for k, v in prev.items()})
+        acc["wait"] += t1 - t0
+        acc["call"] += t2 - t1
+        acc["read"] += time.perf_counter() - t2
+        prev = m
+        if i >= n - keep:
+            kept.append(b)
+    t2 = time.perf_counter()
+    metrics.append({k: float(v) for k, v in prev.items()})
+    acc["read"] += time.perf_counter() - t2
+    marks.append((time.perf_counter(), acc, time.process_time()))
+    return marks, metrics, kept
+
+
+def loop_window(marks, first, batch):
+    """A step loop's figures from its step ``first`` to its end."""
+    (t, acc, c), (t1, acc1, c1) = marks[first], marks[-1]
+    n, total = len(marks) - 1 - first, t1 - t
+    out = {"steps": n, "ms_per_step": 1e3 * total / n,
+           "images_per_s": n * batch / total,
+           "wait_share": (acc1["wait"] - acc["wait"]) / total,
+           "cores_busy": (c1 - c) / total}
+    for k in acc:
+        out[k + "_ms_per_step"] = 1e3 * (acc1[k] - acc[k]) / n
+    return out
+
+
+def fed_steps(cfg, warmup, drain, steps):
+    """bf16 SSD300 train steps fed by the train loader, inside one epoch:
+    ``warmup`` steps, then ``drain`` + ``steps`` steps. The last ``steps``
+    are the steady figures, the loader's prefetch queue (PREFETCH +
+    workers batches, filled during the warm-up) having had ``drain``
+    steps to empty: ms per step on the host's clock, the ms a step spent
+    waiting for a batch, in the step's call and reading its metrics, the
+    wait's share and the process's busy cores; beside them the same over
+    all ``drain + steps``, and ``alone``: the same loop over those last
+    ``steps`` batches again once the loader's threads have ended. Every
+    loss and positive count of the fed steps."""
+    state, priors = create_train_state(cfg, "cuda", seed=0)
+    step = make_train_step(priors, cfg)
+    loader = dataset_factory("train", cfg)
+    if warmup + drain + steps > len(loader):
+        raise ValueError("{} steps cross the epoch of {} batches".format(
+            warmup + drain + steps, len(loader)))
+    it = iter(loader)
+    for _ in range(warmup):
+        b = next(it)
+        step(state, torch.from_numpy(b["images"]),
+             torch.from_numpy(b["boxes"]), torch.from_numpy(b["labels"]))
+    torch.cuda.synchronize()
+    marks, metrics, kept = step_loop(state, step, it, drain + steps, steps)
+    it.close()
+    loader_threads_joined()
+    alone, _, _ = step_loop(state, step, iter(kept), steps)
+    del state
+    batch = cfg.DATASET.TRAIN_BATCH_SIZE
+    return {**loop_window(marks, drain, batch),
+            "all": loop_window(marks, 0, batch),
+            "alone": loop_window(alone, 0, batch),
+            "warmup": warmup, "drain": drain,
+            "epoch_batches": len(loader),
+            "losses": [m["loss"] for m in metrics],
+            "num_pos": [int(m["num_pos"]) for m in metrics]}
+
+
+def phase_data(n_train=1536, n_windows=64, rate_batches=(4, 24), steps=20):
+    """The host pipeline on the card's host, with no OpenCV: a seeded VOC
+    tree of PPM images at VOC's sizes, 48 batches an epoch, so that no
+    measurement crosses an epoch's end (where the loader restarts its
+    threads); the C++ sampler bit for bit against its numpy twin on the
+    sampled windows and the edge cases, each timed per item; the train
+    loader's images/s and busy cores in both modes at 1 and 8 workers;
+    then SSD300 bf16 train steps at batch 32 fed by the loader in each
+    mode, with the loop's wait for the loader once its prefetch queue has
+    drained."""
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        root = os.path.join(work, "voc")
+        t0 = time.perf_counter()
+        write_voc_tree(root, (("trainval", n_train),), seed=5,
+                       sizes=VOC_SIZES)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.build()
+        build_s = time.perf_counter() - t0
+        cases = sampler_windows(root, n_windows)
+        t0 = time.perf_counter()
+        got = [native.fused_sample_u8(*c) for c in cases]
+        native_ms = 1e3 * (time.perf_counter() - t0) / len(cases)
+        t0 = time.perf_counter()
+        want = [native.fused_sample_u8_plain(*c) for c in cases]
+        plain_ms = 1e3 * (time.perf_counter() - t0) / len(cases)
+        unequal = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not np.array_equal(a, b)]
+        if unequal:
+            raise AssertionError("fused_sample_u8 differs from its plain "
+                                 "version on cases {}".format(unequal))
+        max_err = max(int(np.abs(a.astype(np.int16) - b).max())
+                      for a, b in zip(got, want))
+        out_bytes = sum(a.nbytes for a in got)
+        in_bytes = sum(min(c[0].nbytes, 3 * (c[3][2] - c[3][0])
+                           * (c[3][3] - c[3][1])) for c in cases)
+        sampler = {"cases": len(cases), "windows": n_windows,
+                   "edge_cases": len(cases) - n_windows,
+                   "max_abs_err": max_err, "ms_per_item": native_ms,
+                   "plain_ms_per_item": plain_ms,
+                   "bytes_per_item": (in_bytes + out_bytes) / len(cases),
+                   "build_seconds": build_s}
+
+        parts = item_ms(root)
+        rates, runs = [], {}
+        for mode, device_photometric in (("float", False), ("uint8", True)):
+            cfg = load_cfg("ssd_vgg16_voc")
+            cfg.DATASET.DATASET_DIR = root
+            cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+            cfg.DATASET.DEVICE_PHOTOMETRIC = device_photometric
+            cfg.TRAIN.OPTIMIZER.LR = 1e-5
+            for workers, batches in zip((1, 8), rate_batches):
+                cfg.DATASET.NUM_WORKERS = workers
+                rates.append({"mode": mode, "workers": workers,
+                              **loader_rate(cfg, batches)})
+            cfg.DATASET.NUM_WORKERS = 8
+            native.CALLS = 0
+            run = fed_steps(cfg, 3, DetLoader.PREFETCH + 8, steps)
+            run["sampler_calls"] = native.CALLS
+            if not all(math.isfinite(v) for v in run["losses"]) \
+                    or min(run["num_pos"]) <= 0:
+                raise AssertionError("{} losses {} num_pos {}".format(
+                    mode, run["losses"], run["num_pos"]))
+            runs[mode] = run
+        if runs["uint8"]["sampler_calls"] == 0 \
+                or runs["float"]["sampler_calls"] != 0:
+            raise AssertionError("sampler calls {} {}".format(
+                runs["uint8"]["sampler_calls"],
+                runs["float"]["sampler_calls"]))
+        result = {"phase": "data", "train_images": n_train,
+                  "sizes": VOC_SIZES, "tree_seconds": tree_s,
+                  "cpu_count": os.cpu_count(),
+                  "affinity": len(os.sched_getaffinity(0)),
+                  "sampler": sampler, "item_ms": parts, "loader": rates,
+                  "batch": BATCH,
+                  "dtype": "bfloat16", "steps": steps, "fed": runs,
+                  "nvidia_smi": power_limit()}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def trace_busy(path):
+    """From a Chrome trace of ``torch.profiler``: the count of device
+    kernel events, their summed ms, and the share of the traced window in
+    which some kernel ran (overlapping kernels counted once)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel")
+    timed = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and "ts" in e]
+    if not spans:
+        return {"kernels": 0}
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(b for _, b in timed) - min(a for a, _ in timed)
+    return {"kernels": len(spans),
+            "kernel_ms": sum(b - a for a, b in spans) / 1e3,
+            "window_ms": window / 1e3, "busy_share": busy / window}
+
+
+def phase_cli(n_train=1024, n_test=64, steps=20):
+    """The two command lines at full width on a seeded VOC tree of PPM
+    images at VOC's sizes: ``odtpu_torch.train``'s setup and run train
+    SSD300 for 20 steps (bf16, batch 32, the float host path) inside one
+    epoch of 32 batches, save at 10 and 20, validate at 20 and trace
+    steps 11-20 with --profile_dir; then
+    ``odtpu_torch.eval``'s setup and run score the last checkpoint. One
+    ``nms_rows`` launch per eval batch and no ``nms_mask``; the eval's mAP
+    and detection files equal the train run's last validation."""
+    if steps > n_train // BATCH:
+        raise ValueError("{} steps cross the epoch of {} batches".format(
+            steps, n_train // BATCH))
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        root = os.path.join(work, "voc")
+        write_voc_tree(root, (("trainval", n_train), ("test", n_test)),
+                       seed=6, sizes=VOC_SIZES)
+        w = random_state_dict(load_cfg(), seed=0)[
+            "backbone.conv1_1.conv.weight"]
+        basenet = os.path.join(work, "basenet.npz")
+        np.savez(basenet, **{"conv1_1/kernel":
+                             w.permute(2, 3, 1, 0).numpy()})
+        out, prof = os.path.join(work, "out"), os.path.join(work, "prof")
+        args = train.parse_args(["--output_dir", out, "--max_iter",
+                                 str(steps), "--basenet", basenet,
+                                 "--profile_dir", prof])
+        cfg, out_dir, _ = train.setup(args)
+        cfg.DATASET.DATASET_DIR = root
+        cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+        cfg.TRAIN.SAVE_ITER = steps // 2
+        cfg.TRAIN.EVAL_ITER = steps
+        cfg.TRAIN.LOG_LOSS_ITER = 5
+        cfg.TRAIN.OPTIMIZER.LR = 1e-5
+        eval_batches = -(-n_test // cfg.DATASET.EVAL_BATCH_SIZE)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train.run(args, cfg, out_dir, os.path.join(work, "logs"))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = counts()
+        trace = os.path.join(prof, "trace.json")
+        if not os.path.isfile(trace):
+            raise AssertionError("no profiler trace at " + trace)
+        busy = trace_busy(trace)
+        if res["ckpt_steps"] != [steps // 2, steps] \
+                or [e["step"] for e in res["evals"]] != [steps]:
+            raise AssertionError("train run {}".format(
+                {k: res[k] for k in ("ckpt_steps", "evals")}))
+        if not res["losses"] or not all(
+                math.isfinite(m["loss"]) and m["num_pos"] > 0
+                for m in res["losses"]):
+            raise AssertionError("cli losses {}".format(res["losses"]))
+
+        eargs = cli.parse_args(["--ckpt", os.path.join(out, "ckpt"),
+                                "--output_dir", os.path.join(work, "eval")])
+        ecfg = cli.setup(eargs)
+        ecfg.DATASET.DATASET_DIR = root
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = cli.run(eargs, ecfg)
+        eval_s = time.perf_counter() - t0
+        eval_launches = counts()
+        last = res["evals"][-1]
+        same_files = all(
+            open(os.path.join(out, "eval", f)).read()
+            == open(os.path.join(work, "eval", f)).read()
+            for f in os.listdir(os.path.join(out, "eval"))
+            if f.startswith("det_"))
+        for label, launches in (("train", train_launches),
+                                ("eval", eval_launches)):
+            if launches != {"nms_mask": 0, "nms_rows": eval_batches}:
+                raise AssertionError("{}: NMS launches {} for {} eval "
+                                     "batches".format(label, launches,
+                                                      eval_batches))
+        if scored["maps"] != last["maps"] or not same_files:
+            raise AssertionError("eval mAP {} (files equal: {}) against the "
+                                 "train run's {}".format(
+                                     scored["maps"], same_files,
+                                     last["maps"]))
+        result = {"phase": "cli", "cfg": args.cfg_name, "dtype": "bfloat16",
+                  "batch": BATCH, "train_images": n_train,
+                  "epoch_batches": n_train // BATCH,
+                  "test_images": n_test, "steps": res["step"],
+                  "train_seconds": train_s, "losses": res["losses"],
+                  "ckpt_steps": res["ckpt_steps"], "train_mAP": last["maps"],
+                  "eval_mAP": scored["maps"], "detection_files_equal": True,
+                  "eval_seconds": eval_s, "eval_timing": scored["timing"],
+                  "eval_batches": eval_batches,
+                  "launches": {"train": train_launches,
+                               "eval": eval_launches},
+                  "trace": busy, "nvidia_smi": power_limit()}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def write_coco_tree(root, split="minival2014", n=64, seed=7):
+    """A seeded COCO tree: ``annotations/instances_<split>.json`` over the
+    80 category ids and ``images/<split>/`` PPM images at 640x480 and
+    480x640, 1-4 boxes each. Returns the parsed annotation dict."""
+    rng = np.random.RandomState(seed)
+    cat_ids = [i for i in range(1, 91) if i not in (
+        12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+    img_dir = os.path.join(root, "images", split)
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        h, w = ((480, 640), (640, 480))[i % 2]
+        img = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(1, 5)):
+            x, y = rng.randint(0, w - 80), rng.randint(0, h - 80)
+            bw, bh = rng.randint(20, 80, 2)
+            img[y:y + bh, x:x + bw] = rng.randint(30, 255, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(rng.choice(cat_ids)),
+                         "bbox": [float(x), float(y), float(bw), float(bh)],
+                         "area": float(bw * bh), "iscrowd": 0})
+        name = "COCO_{}_{:012d}.jpg".format(split, i + 1)
+        write_ppm(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "width": w,
+                       "height": h})
+    data = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": str(c)} for c in cat_ids]}
+    with open(os.path.join(root, "annotations",
+                           "instances_{}.json".format(split)), "w") as f:
+        json.dump(data, f)
+    return data
+
+
+def truth_step(dataset, batch):
+    """A perfect detector for EvalCOCO.validate: each batch, in the
+    loader's order, answered with its ground truth as rows (score 1,
+    [0, 1] boxes, class + 1)."""
+    truth = [dataset[i] for i in range(len(dataset))]
+    calls = [0]
+
+    def step(images):
+        rows = torch.zeros(images.shape[0], 200, 6)
+        for k in range(images.shape[0]):
+            i = calls[0] * batch + k
+            if i < len(truth):
+                n = len(truth[i]["labels"])
+                rows[k, :n, 0] = 1.0
+                rows[k, :n, 1:5] = torch.from_numpy(truth[i]["boxes"])
+                rows[k, :n, 5] = torch.from_numpy(
+                    truth[i]["labels"] + 1.0)
+        calls[0] += 1
+        return {"rows": rows,
+                "dropped": torch.zeros(images.shape[0], dtype=torch.int32)}
+
+    return step
+
+
+def phase_coco(n=64):
+    """The eval command line on SSD300-COCO (``ssd_vgg16_coco``) over a
+    seeded COCO tree with the seeded served weights as an npz: mAP@0.5
+    and mAP@[.5:.95] in [0, 1], one ``nms_rows`` launch per batch; then
+    EvalCOCO fed the ground truth scores 1.0 and 1.0."""
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_coco_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        root = os.path.join(work, "coco")
+        write_coco_tree(root, n=n)
+        cfg = load_cfg("ssd_vgg16_coco")
+        npz = os.path.join(work, "served.npz")
+        np.savez(npz, **to_odtpu_params(random_state_dict(cfg, seed=0)))
+        eargs = cli.parse_args(["--cfg_name", "ssd_vgg16_coco",
+                                "--model_npz", npz, "--output_dir",
+                                os.path.join(work, "eval")])
+        ecfg = cli.setup(eargs)
+        ecfg.DATASET.DATASET_DIR = root
+        batches = -(-n // ecfg.DATASET.EVAL_BATCH_SIZE)
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = cli.run(eargs, ecfg)
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        if launches != {"nms_mask": 0, "nms_rows": batches}:
+            raise AssertionError("coco NMS launches {} for {} batches"
+                                 .format(launches, batches))
+        if not all(0.0 <= m <= 1.0 for m in scored["maps"]) \
+                or len(scored["maps"]) != 2:
+            raise AssertionError("coco mAP {}".format(scored["maps"]))
+        loader = dataset_factory("eval", ecfg)
+        solver = eval_solver_factory(loader, ecfg)
+        _, perfect = solver.validate(truth_step(loader.dataset,
+                                                loader.batch_size))
+        if perfect != [1.0, 1.0]:
+            raise AssertionError("perfect detector scored {}".format(
+                perfect))
+        result = {"phase": "coco", "cfg": "ssd_vgg16_coco",
+                  "dtype": "bfloat16", "images": n, "batches": batches,
+                  "mAP": scored["maps"], "eval_seconds": seconds,
+                  "eval_timing": scored["timing"], "detections":
+                  len(scored["results"]), "launches": launches,
+                  "perfect_mAP": perfect, "nvidia_smi": power_limit()}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -1514,6 +2048,9 @@ def main():
     timed("family_train_parity", phase_family_train_parity)
     fitted = timed("fit", phase_fit)
     fitted_rfb = timed("fit_rfbnet300", phase_fit, "rfbnet300_vgg16_voc")
+    data = timed("data", phase_data)
+    cli_run = timed("cli", phase_cli)
+    coco = timed("coco", phase_coco)
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -1533,10 +2070,29 @@ def main():
                              for f in family_train},
             "fit": sum(r["launches"][name] for r in fitted["runs"]),
             "fit_rfbnet300": sum(r["launches"][name]
-                                 for r in fitted_rfb["runs"])}
+                                 for r in fitted_rfb["runs"]),
+            "cli_train": cli_run["launches"]["train"][name],
+            "cli_eval": cli_run["launches"]["eval"][name],
+            "coco_eval": coco["launches"][name]}
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
-    emit({"kernels": [mask, rows]})
+    # the host sampler is C++ for the host, not a kernel of the card: it
+    # stands under a key of its own
+    sampler = data["sampler"]
+    host = {"name": "fused_sample_u8", "route": "host",
+            "source": "odtpu_torch/csrc/sampler.cc",
+            "replaces": "odtpu/data/_native/sampler.cc (host C++, not a "
+                        "TPU kernel)",
+            "launches": data["fed"]["uint8"]["sampler_calls"],
+            "path": "uint8 device-photometric loader, {} steps".format(
+                data["fed"]["uint8"]["warmup"] + data["fed"]["uint8"]["drain"]
+                + data["steps"]),
+            "max_abs_err": sampler["max_abs_err"],
+            "ms": sampler["ms_per_item"],
+            "plain_ms": sampler["plain_ms_per_item"], "bound_ms": None,
+            "bound_by": "not measured: no host memory rate",
+            "library_ms": None, "cpu_count": data["cpu_count"]}
+    emit({"kernels": [mask, rows], "host": [host]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     sys.stdout.flush()

@@ -12,7 +12,12 @@ Module names follow ``odtpu`` so each counterpart is easy to find:
 - ``models``: the zoo: SSD, FPN, FSSD, RFBNet, DRN_SSD and RefineDet over
   VGG16 (with or without batch norm) or the DRN-D bases.
 - ``eval_step`` / ``infer``: uint8 images in, ``[B, R, 6]`` rows out.
-- ``train_step`` / ``train``: training, SSD over VGG16 so far.
+- ``data``: image decoding (PPM without OpenCV), the host augmentation
+  with its C++ sampler (``csrc/sampler.cc``, built with g++), VOC, COCO,
+  the loader and ``dataset_factory``.
+- ``train_step`` / ``train``: training of every family, and
+  ``python -m odtpu_torch.train``.
+- ``eval``: VOC and COCO mAP, and ``python -m odtpu_torch.eval``.
 
 Public boundaries keep ``odtpu``'s NHWC layout; convs run NCHW inside.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -124,7 +124,8 @@ class DetLoader:
                     done[bi] = batch
                     cv.notify_all()
 
-        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True,
+                                    name="DetLoader-worker-{}".format(w))
                    for w in range(self.num_workers)]
         for t in threads:
             t.start()
@@ -171,15 +172,15 @@ def pad_batch_to(batch, batch_size):
 class NetworkInput:
     """The transform for images that already have the network's input
     size: the uint8 image passes through (the device normalizes it), and
-    any other size raises. The port has no resize yet; the geometric
-    augmentation comes with the data slice."""
+    any other size raises. ``augment.SSDAugmentation`` resizes."""
 
     def __init__(self, size):
         self.size = tuple(int(s) for s in size)
 
     def __call__(self, img, boxes, labels, rng=None):
         if tuple(img.shape[:2]) != self.size or img.dtype != np.uint8:
-            raise ValueError("want a uint8 {} image, got {} {}; the port "
-                             "cannot resize yet".format(
+            raise ValueError("want a uint8 {} image, got {} {}; this "
+                             "transform cannot resize (SSDAugmentation "
+                             "does)".format(
                                  self.size, img.dtype, img.shape))
         return img, boxes, labels

@@ -3,9 +3,11 @@
 Counterpart of ``odtpu/data/voc.py``: XML annotations, 1-based pixel
 coordinates made 0-based and normalized to [0, 1], labels 0-19 in
 alphabetical class order, difficult boxes skipped unless kept, ids from
-``ImageSets/Main/<set>.txt``. The port has no image decoder yet, so the
-dataset reads each image through a ``reader`` the caller passes in:
-``reader(path) -> uint8 BGR [H, W, 3]`` (or None when it cannot).
+``ImageSets/Main/<set>.txt``. Images are read by ``image.imread`` (binary
+PPM without OpenCV, any other format through cv2), by a caller's
+``reader(path) -> uint8 BGR [H, W, 3]`` (or None when it cannot), or
+through an :class:`~odtpu_torch.data.cache.ImageCache`, which then keeps
+the parsed annotations too.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import os.path as osp
 import xml.etree.ElementTree as ET
 
 import numpy as np
+
+from .image import imread
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -58,15 +62,14 @@ class VOCDetection:
 
     def __init__(self, root, image_sets=(("2007", "trainval"),
                                          ("2012", "trainval")),
-                 reader=None, keep_difficult=False,
-                 dataset_name="VOC0712"):
-        if reader is None:
-            raise ValueError("VOCDetection needs a reader(path) -> uint8 "
-                             "BGR image: the port has no decoder yet")
+                 reader=imread, keep_difficult=False,
+                 dataset_name="VOC0712", image_cache=None):
         self.name = dataset_name
         self.root = root
         self.image_sets = image_sets
-        self.reader = reader
+        self.reader = image_cache.imread if image_cache else reader
+        # annotations are kept under the same opt-in as the images
+        self._anno_cache = {} if image_cache is not None else None
         self.keep_difficult = keep_difficult
         self.ids = []
         for (year, setname) in image_sets:
@@ -93,8 +96,17 @@ class VOCDetection:
         img = self.reader(path)
         if img is None:
             raise IOError("failed to read " + path)
-        boxes, labels, _ = parse_voc_xml(self.anno_path(index),
-                                         self.keep_difficult)
+        if self._anno_cache is not None:
+            cached = self._anno_cache.get(index)
+            if cached is None:
+                cached = parse_voc_xml(self.anno_path(index),
+                                       self.keep_difficult)
+                self._anno_cache[index] = cached
+            # copies out: the augmentation transforms boxes downstream
+            boxes, labels = cached[0].copy(), cached[1].copy()
+        else:
+            boxes, labels, _ = parse_voc_xml(self.anno_path(index),
+                                             self.keep_difficult)
         return {
             "image": img,
             "boxes": boxes,

@@ -1,1 +1,2 @@
-"""VOC mAP and the evaluator that runs the eval step over a loader."""
+"""VOC and COCO mAP, the evaluators that run the eval step over a loader,
+and the ``python -m odtpu_torch.eval`` command line (``cli``)."""

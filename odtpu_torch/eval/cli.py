@@ -1,0 +1,104 @@
+"""``python -m odtpu_torch.eval``: score a checkpoint or an npz.
+
+Counterpart of ``eval.py`` (the reference's eval.py)::
+
+    python -m odtpu_torch.eval --cfg_name ssd_vgg16_voc [--job_group base]
+        [--ckpt DIR | --model_npz NPZ] [--output_dir eval_out]
+        [--device cuda]
+
+builds the detector of one of ``utils.config.CFGS`` (by name, or by its
+yml's path: the port reads no yaml), loads the latest checkpoint of
+``--ckpt`` (default ``weights/<job_group>/<cfg_name>/ckpt``) with its
+running statistics, or an ``odtpu`` npz with its ``__batch_stats__``, and
+runs the serving path's eval step (the CUDA NMS kernel on a card) over
+the test set of ``DATASET.DATASET_DIR`` (``data/<SUB_DIR>`` under the
+checkout). It prints each class's AP (VOC), the mAP (VOC: mAP@0.5; COCO:
+mAP@0.5 and mAP@[.5:.95]) and the evaluator's timing. Without a
+checkpoint it warns and scores the seeded init, as ``eval.py`` does.
+``--quant int8`` waits for ``ops/quant.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from ..data import dataset_factory
+from ..infer import Detector
+from ..utils.checkpoint import Checkpointer, load_odtpu_npz
+from ..utils.config import load_cfg, resolve_cfg_args
+from .evaluator import EvalVOC, eval_solver_factory
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="odtpu_torch evaluation")
+    p.add_argument("--cfg_name", default="",
+                   help="one of utils.config.CFGS (default ssd_vgg16_voc); "
+                        "with --cfg, only the run's name")
+    p.add_argument("--job_group", default="", help="default: base")
+    p.add_argument("--cfg", default="",
+                   help="a yml that utils.config.CFGS names")
+    p.add_argument("--ckpt", default="",
+                   help="checkpoint dir (default weights/<group>/<name>/"
+                        "ckpt); its latest step is scored")
+    p.add_argument("--model_npz", default="",
+                   help="an odtpu npz (with __batch_stats__ where the "
+                        "model has batch norm)")
+    p.add_argument("--output_dir", default="eval_out")
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="int8 serving: not ported yet")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def setup(args):
+    """The cfg ``args`` ask for; the caller may change it (a dataset
+    directory, say) before :func:`run`."""
+    if args.quant:
+        raise SystemExit("--quant {} needs ops/quant.py, which is not "
+                         "ported to odtpu_torch yet".format(args.quant))
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run on the "
+                         "CPU")
+    return load_cfg(resolve_cfg_args(args))
+
+
+def _weights(args, cfg):
+    """(state dict or None for the seeded init, where it came from)."""
+    if args.model_npz:
+        return load_odtpu_npz(args.model_npz), args.model_npz
+    ckpt = Checkpointer(args.ckpt or os.path.join(
+        cfg.GENERAL.WEIGHTS_ROOT, args.job_group, args.cfg_name, "ckpt"))
+    if ckpt.latest_step() is None:
+        print("WARNING: no checkpoint under {}; evaluating the seeded "
+              "init".format(ckpt.directory))
+        return None, "seeded init"
+    data = ckpt.read()
+    print("restored step", data["step"])
+    return data["model"], "{} step {}".format(ckpt.directory, data["step"])
+
+
+def run(args, cfg) -> dict:
+    """Score the weights ``args`` name on ``cfg``'s test set; returns the
+    per-class results, the mAPs, the timing and where the weights came
+    from."""
+    solver = eval_solver_factory(dataset_factory("eval", cfg), cfg,
+                                 args.output_dir)
+    state_dict, source = _weights(args, cfg)
+    detector = Detector(cfg, state_dict=state_dict, device=args.device)
+    res, maps = solver.validate(detector.step)
+    if isinstance(solver, EvalVOC):
+        for cls, ap, _, _ in res:
+            print("AP for {} = {:.4f}".format(cls, ap))
+    print("mAP:", maps)
+    print("timing:", solver.last_timing)
+    return {"results": res, "maps": maps, "timing": solver.last_timing,
+            "weights": source}
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return run(args, setup(args))

@@ -1,13 +1,16 @@
-"""The evaluator: run the eval step over a loader and score VOC mAP.
+"""The evaluators: run the eval step over a loader and score VOC or COCO
+mAP.
 
-Counterpart of ``odtpu/eval/evaluator.py`` ``EvalBase.validate`` and
-``EvalVOC`` (COCO and the multi-host gather wait for their slices). The
-eval step is ``step(images) -> {"rows": [B, R, 6], "dropped": [B]}``
-(``odtpu_torch.eval_step``); the rows' boxes are scaled from [0, 1] to
-each image's original pixels by the batch's ``extra`` (h, w, c), short
-last batches are padded to the loader's batch size, and a nonzero
-``dropped`` count (per-class survivors the row cap discarded) is
-reported in ``last_timing`` and as a warning.
+Counterpart of ``odtpu/eval/evaluator.py`` ``EvalBase.validate``,
+``EvalVOC``, ``EvalCOCO`` and ``eval_solver_factory`` (the multi-host
+gather waits for the DDP slice, the TensorBoard images and PR curves for
+``utils/visualize.py``). The eval step is ``step(images) -> {"rows":
+[B, R, 6], "dropped": [B]}`` (``odtpu_torch.eval_step``); the rows'
+boxes are scaled from [0, 1] to each image's original pixels by the
+batch's ``extra`` (h, w, c), short last batches are padded to the
+loader's batch size, and a nonzero ``dropped`` count (per-class
+survivors the row cap discarded) is reported in ``last_timing`` and as a
+warning.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import time
 import numpy as np
 
 from ..data.loader import pad_batch_to
+from .coco_eval import build_gt_index, evaluate_coco
 from .voc_eval import evaluate_detections
 
 
@@ -118,3 +122,49 @@ class EvalVOC(EvalBase):
             test_set=self.test_set,
             use_07_metric=bool(self.cfg.EVAL.USE_07_METRIC))
         return res, [mAP]
+
+
+class EvalCOCO(EvalBase):
+    """COCO mAP@0.5 and mAP@[.5:.95] of the first ``loader.num_items``
+    images (``DATASET.NUM_EVAL_PICS``) by ``coco_eval.evaluate_coco``."""
+
+    def __init__(self, data_loader, cfg, output_dir="eval_out"):
+        super().__init__(data_loader, cfg, output_dir)
+        self.label_to_cat = data_loader.dataset.label_to_cat
+
+    def reset_results(self):
+        self.rows = []
+
+    def accumulate(self, det, extra, ids, img_idx, indices=None):
+        # det [V, N, 6] rows = score, x1, y1, x2, y2, cls (pixels; cls 1-80)
+        # -> [coco id, x, y, w, h, score, category id]
+        for b in range(det.shape[0]):
+            coco_id = float(ids[b])
+            rows = det[b]
+            rows = rows[rows[:, 0] > 0]
+            for r in rows:
+                cat = float(self.label_to_cat[int(r[5]) - 1])
+                self.rows.append((coco_id, r[1], r[2], r[3] - r[1],
+                                  r[4] - r[2], r[0], cat))
+            img_idx += 1
+        return img_idx
+
+    def evaluate_stats(self):
+        gt_index = build_gt_index(self.loader.dataset)
+        if self.loader.num_items < len(self.loader.dataset):
+            keep_ids = {float(self.loader.dataset.items[i][1])
+                        for i in range(self.loader.num_items)}
+            gt_index = {k: v for k, v in gt_index.items()
+                        if k[0] in keep_ids}
+        cat_ids = sorted(self.label_to_cat.values())
+        map05, map95 = evaluate_coco(self.rows, gt_index,
+                                     [float(c) for c in cat_ids])
+        return self.rows, [map05, map95]
+
+
+def eval_solver_factory(loader, cfg, output_dir="eval_out"):
+    """EvalCOCO for a COCO dataset, else EvalVOC (the reference's
+    lib/utils/__init__.py:8-11)."""
+    if cfg.DATASET.NAME.upper().startswith("COCO"):
+        return EvalCOCO(loader, cfg, output_dir)
+    return EvalVOC(loader, cfg, output_dir)

@@ -1,31 +1,55 @@
-"""The train loop: steps, logs, checkpoints, resume and validation.
+"""Training: the train loop and ``python -m odtpu_torch.train``.
 
-Counterpart of the loop in ``train.py:240-333``: the train step over the
-loader until ``TRAIN.MAX_ITER``; the loss and images/s every
-``LOG_LOSS_ITER`` steps, read from the step before, so that each read
-waits for that step and the images/s window is measured on the device's
-clock; a checkpoint every ``SAVE_ITER`` steps and at the end; a
-validation every ``EVAL_ITER`` steps and at the end, through the serving
-path's eval step (the CUDA NMS kernel on a card), which runs the model in
-eval mode and hands it back in train mode: batch norm validates with its
-running statistics and leaves them as they are. Saves and validations
-restart the throughput window. Resume and auto-resume read
-``<out_dir>/ckpt``.
+The loop (:func:`fit`) is the counterpart of ``train.py:240-333``: the
+train step over the loader until ``TRAIN.MAX_ITER``; the loss and
+images/s every ``LOG_LOSS_ITER`` steps, read from the step before, so
+that each read waits for that step and the images/s window is measured
+on the device's clock; a checkpoint every ``SAVE_ITER`` steps and at the
+end; a validation every ``EVAL_ITER`` steps and at the end, through the
+serving path's eval step (the CUDA NMS kernel on a card), which runs the
+model in eval mode and hands it back in train mode: batch norm validates
+with its running statistics and leaves them as they are. Saves and
+validations restart the throughput window. Resume and auto-resume read
+``<out_dir>/ckpt``. Losses, images/s and mAP go to TensorBoard when a
+writer is given, and ``profile_dir`` takes a ``torch.profiler`` trace of
+steps 11-20.
 
-The command line (``main(argv)``) comes with the data slice, as do
-TensorBoard, the profiler trace and the multi-host options.
+The command line (``train.py:114``)::
+
+    python -m odtpu_torch.train --cfg_name ssd_vgg16_voc [--job_group base]
+        [--resume DIR | --auto_resume] [--basenet NPZ] [--output_dir DIR]
+        [--max_iter N] [--profile_dir DIR] [--device cuda]
+
+trains on ``DATASET.DATASET_DIR`` (``data/<SUB_DIR>`` under the checkout)
+into ``--output_dir`` (default ``weights/<job_group>/<cfg_name>``), with
+TensorBoard under ``logs/<job_group>_<cfg_name>``. The configuration is
+one of ``utils.config.CFGS``, by name or by its yml's path: the port
+reads no yaml. For the same reason the run's configuration is archived
+as ``config_used.json`` (``odtpu`` writes ``config_used.yml``). The
+multi-host options wait for the DDP slice.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
 import time
 from pathlib import Path
 
 import torch
 
+from .data import dataset_factory
+from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
 from .train_step import create_train_state, make_train_step
 from .utils.checkpoint import Checkpointer, load_basenet
+from .utils.config import load_cfg, resolve_cfg_args
+from .utils.logging import TBWriter
+
+# a --profile_dir trace starts when the first count of updates is done and
+# stops at the second: steps 11-20, as train.py:249-255 traces them
+PROFILE_STEPS = (10, 20)
 
 
 def _sync(device: torch.device) -> None:
@@ -33,14 +57,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Trace:
+    """A ``torch.profiler`` trace of the steps of :data:`PROFILE_STEPS`,
+    written to ``<profile_dir>/trace.json`` (Chrome trace format)."""
+
+    def __init__(self, profile_dir, device):
+        self.dir, self.device, self.prof = profile_dir, device, None
+
+    def before_step(self, it):
+        if self.dir and it == PROFILE_STEPS[0] and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        _sync(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print("profiler trace written to", path, flush=True)
+
+
 def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
-        resume="", auto_resume=False, basenet="") -> dict:
+        resume="", auto_resume=False, basenet="", tb_writer=None,
+        profile_dir="") -> dict:
     """Train from seeded weights (or ``basenet``, or a checkpoint) to
     ``cfg.TRAIN.MAX_ITER``.
 
     ``train_loader`` yields dict batches (``images``, ``boxes``,
     ``labels``: see ``odtpu_torch.data.loader.DetLoader``);
-    ``eval_solver`` is an ``odtpu_torch.eval.evaluator.EvalVOC``. Returns
+    ``eval_solver`` is an ``odtpu_torch.eval.evaluator.EvalVOC`` or
+    ``EvalCOCO``; ``tb_writer`` a ``utils.logging.TBWriter``. Returns
     the final step, the logged losses, each validation's step, mAP and
     dropped count, the checkpoint steps on disk and the
     :class:`~odtpu_torch.train_step.TrainState`.
@@ -74,10 +127,12 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     start = it = state.step
     last_log_iter, last_log_time = it, time.time()
     pending = None  # (step, metrics) not read yet
+    trace = _Trace(profile_dir, device)
     while it < max_iter:
         for batch in train_loader:
             if it >= max_iter:
                 break
+            trace.before_step(it)
             metrics = step_fn(state, torch.from_numpy(batch["images"]),
                               torch.from_numpy(batch["boxes"]),
                               torch.from_numpy(batch["labels"]))
@@ -98,21 +153,129 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                       "{:.1f} img/s".format(pending[0], m["loss"],
                                             m["loss_loc"], m["loss_conf"],
                                             ips), flush=True)
+                if tb_writer is not None:
+                    tb_writer.add_scalars("train", {
+                        "loss": m["loss"], "loc_loss": m["loss_loc"],
+                        "conf_loss": m["loss_conf"],
+                        "img_per_sec": ips},
+                        pending[0])
             pending = (it, metrics)
+            if it == PROFILE_STEPS[1]:
+                trace.stop()
 
-            if it % save_every == 0 or it == max_iter:
-                ckpt.save(it, state)
-                print("saved checkpoint at", it, flush=True)
-                last_log_iter, last_log_time = it, time.time()
-            if it % eval_every == 0 or it == max_iter:
-                _, maps = eval_solver.validate(eval_fn)
-                dropped = eval_solver.last_timing["dropped_dets"]
-                out["evals"].append({"step": it, "mAP": maps[0],
-                                     "dropped": dropped})
-                print("iter {} | mAP {}".format(it, maps), flush=True)
-                last_log_iter, last_log_time = it, time.time()
+            save = it % save_every == 0 or it == max_iter
+            validate = it % eval_every == 0 or it == max_iter
+            if save or validate:
+                # the img/s window leaves out the save and the validation
+                _sync(device)
+                paused = time.time()
+                if save:
+                    ckpt.save(it, state)
+                    print("saved checkpoint at", it, flush=True)
+                if validate:
+                    _, maps = eval_solver.validate(eval_fn)
+                    dropped = eval_solver.last_timing["dropped_dets"]
+                    out["evals"].append({"step": it, "mAP": maps[0],
+                                         "maps": maps, "dropped": dropped})
+                    print("iter {} | mAP {}".format(it, maps), flush=True)
+                    if tb_writer is not None:
+                        tb_writer.add_scalar("mAP/mAP@0.5", maps[0], it)
+                        if len(maps) > 1:
+                            tb_writer.add_scalar("mAP/mAP@[.5:.95]",
+                                                 maps[1], it)
+                last_log_time += time.time() - paused
+    trace.stop()
 
     ckpt.save(max_iter, state, force=True)
     out.update(step=it, state=state, ckpt_steps=ckpt.all_steps())
     print("done at iter", it, flush=True)
     return out
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="odtpu_torch training")
+    p.add_argument("--cfg_name", default="",
+                   help="one of utils.config.CFGS (default ssd_vgg16_voc); "
+                        "with --cfg, only the run's name")
+    p.add_argument("--job_group", default="", help="default: base")
+    p.add_argument("--cfg", default="",
+                   help="a yml that utils.config.CFGS names "
+                        "(cfgs/<group>/<name>.yml)")
+    p.add_argument("--resume", default="", help="checkpoint dir to resume")
+    p.add_argument("--auto_resume", action="store_true",
+                   help="resume from <output_dir>/ckpt when it holds a "
+                        "checkpoint, else start fresh (with --basenet)")
+    p.add_argument("--basenet", default="",
+                   help="backbone or full-model npz (odtpu's layout)")
+    p.add_argument("--output_dir", default="")
+    p.add_argument("--max_iter", type=int, default=0,
+                   help="override TRAIN.MAX_ITER")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of steps 11-20 there")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def setup(args):
+    """(cfg, out_dir, log_dir) of the run ``args`` ask for; the caller may
+    change the cfg (a dataset directory, say) before :func:`run`."""
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run on the "
+                         "CPU")
+    cfg = load_cfg(resolve_cfg_args(args))
+    if args.max_iter:
+        cfg.TRAIN.MAX_ITER = args.max_iter
+    out = args.output_dir or os.path.join(cfg.GENERAL.WEIGHTS_ROOT,
+                                          args.job_group, args.cfg_name)
+    if os.path.isdir(out) and os.listdir(out) and not (
+            args.resume or args.auto_resume):
+        print("WARNING: output dir {} already exists: checkpoints and logs "
+              "may be overwritten".format(out))
+    os.makedirs(out, exist_ok=True)
+    log_dir = os.path.join(cfg.LOG.ROOT_DIR,
+                           "{}_{}".format(args.job_group, args.cfg_name))
+    return cfg, out, log_dir
+
+
+def _plain(x):
+    """A config tree as JSON's types."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def run(args, cfg, out_dir, log_dir) -> dict:
+    """Train ``cfg`` as ``args`` say: both loaders from
+    ``dataset_factory``, the evaluator from ``eval_solver_factory``,
+    TensorBoard under ``log_dir``; returns :func:`fit`'s result."""
+    shown = [k for k, v in cfg.LOG.items() if k.startswith("SHOW_") and v]
+    if shown:
+        raise NotImplementedError(
+            "LOG.{} needs utils/visualize.py or the PR curves, which are "
+            "not ported to odtpu_torch yet".format(", LOG.".join(shown)))
+    # the run's configuration, archived up front so a crash leaves it
+    with open(os.path.join(out_dir, "config_used.json"), "w") as f:
+        json.dump(_plain(cfg), f, indent=1)
+    train_loader = dataset_factory("train", cfg)
+    solver = eval_solver_factory(dataset_factory("eval", cfg), cfg,
+                                 os.path.join(out_dir, "eval"))
+    tb = TBWriter(log_dir)
+    try:
+        return fit(cfg, train_loader, solver, out_dir, device=args.device,
+                   resume=args.resume, auto_resume=args.auto_resume,
+                   basenet=args.basenet, tb_writer=tb,
+                   profile_dir=args.profile_dir)
+    finally:
+        tb.close()
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return run(args, *setup(args))
+
+
+if __name__ == "__main__":
+    main()

@@ -245,16 +245,21 @@ class Checkpointer:
             self.path(old).unlink(missing_ok=True)
         return True
 
-    def restore(self, state, step: int | None = None):
-        """Load step ``step`` (default: the latest) into ``state`` in place
-        and return it."""
+    def read(self, step: int | None = None, device="cpu") -> dict:
+        """The checkpoint of step ``step`` (default: the latest): ``step``,
+        ``model`` (its state dict, running statistics included) and
+        ``optimizer``, with tensors on ``device``."""
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(
                 "no checkpoint found under {}".format(self.directory))
-        device = next(state.model.parameters()).device
-        data = torch.load(self.path(step), map_location=device,
+        return torch.load(self.path(step), map_location=device,
                           weights_only=True)
+
+    def restore(self, state, step: int | None = None):
+        """Load step ``step`` (default: the latest) into ``state`` in place
+        and return it."""
+        data = self.read(step, next(state.model.parameters()).device)
         state.model.load_state_dict(data["model"], strict=True)
         state.optimizer.load_state_dict(data["optimizer"])
         state.step = int(data["step"])

@@ -2,15 +2,16 @@
 
 Counterpart of ``odtpu/utils/config.py`` (defaults at lines 96-208)
 merged with ``cfgs/base/ssd_vgg16_voc.yml``: the SSD300-VGG16 VOC07+12
-configuration, for serving and training. :func:`load_cfg` gives each
-committed family yml by its name. There is no YAML reader: each
-configuration is a Python dict, so the port needs nothing beyond the
-standard library to build it.
+configuration, for serving, training and the data path. :func:`load_cfg`
+gives each committed family yml by its name. There is no YAML reader:
+each configuration is a Python dict, so the port needs nothing beyond
+the standard library to build it.
 """
 
 from __future__ import annotations
 
 import copy
+import os.path as osp
 
 
 class AttrDict(dict):
@@ -28,7 +29,27 @@ class AttrDict(dict):
 
 def default_cfg() -> AttrDict:
     """A fresh SSD300-VGG16 VOC config tree (derived values filled in)."""
+    return update_cfg(_defaults())
+
+
+def _defaults() -> AttrDict:
     C = AttrDict()
+
+    # the checkout's root; runs write under weights/ and logs/ there
+    C.GENERAL = AttrDict()
+    C.GENERAL.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), "..",
+                                              ".."))
+    C.GENERAL.WEIGHTS_ROOT = osp.join(C.GENERAL.ROOT_DIR, "weights")
+
+    # TensorBoard's root. Each SHOW_* flag needs utils/visualize.py or the
+    # PR curves, which are not ported: the command lines refuse them
+    C.LOG = AttrDict()
+    C.LOG.ROOT_DIR = osp.join(C.GENERAL.ROOT_DIR, "logs")
+    C.LOG.SHOW_PR_CURVE = False
+    C.LOG.SHOW_TEST_IMAGE = False
+    C.LOG.SHOW_AUG_STEPS = False
+    C.LOG.SHOW_ANCHOR_MAPS = False
+    C.LOG.SHOW_SALIENCY = False
 
     # compute dtype for the convs: "bfloat16" (the default) or "float32";
     # parameters stay f32 either way. REMAT (activation checkpointing) is
@@ -37,11 +58,23 @@ def default_cfg() -> AttrDict:
 
     C.DATASET = AttrDict()
     C.DATASET.NAME = "VOC0712"
+    C.DATASET.SUB_DIR = "VOCdevkit"
+    # "" = ROOT_DIR/data/SUB_DIR (update_cfg); an explicit path is kept
+    C.DATASET.DATASET_DIR = ""
+    C.DATASET.TRAIN_SETS = (("2007", "trainval"), ("2012", "trainval"))
     C.DATASET.TEST_SETS = (("2007", "test"),)
     C.DATASET.NUM_CLASSES = 20
     C.DATASET.IMAGE_SIZE = (300, 300)  # (h, w)
     C.DATASET.PIXEL_MEANS = (104, 117, 123)  # BGR, subtracted pre-net
+    C.DATASET.TRAIN_BATCH_SIZE = 32
+    C.DATASET.EVAL_BATCH_SIZE = 32
+    C.DATASET.NUM_WORKERS = 8  # loader threads
     C.DATASET.NUM_EVAL_PICS = 0
+    # ground truth is padded to this many boxes an image (label -1)
+    C.DATASET.MAX_BOXES = 60
+    # keep decoded images in host memory, up to CACHE_GB (data/cache.py)
+    C.DATASET.CACHE_IMAGES = False
+    C.DATASET.CACHE_GB = 8.0
     # run the photometric distortion, mean subtraction and BGR -> RGB in
     # the train step on the device (the batch arrives as uint8)
     C.DATASET.DEVICE_PHOTOMETRIC = False
@@ -100,11 +133,15 @@ def default_cfg() -> AttrDict:
     C.EVAL.USE_07_METRIC = True
     # cross-class row budget of the compact rows; 0 = EVAL.TOP_K
     C.EVAL.COMPACT_ROWS = 0
-    return update_cfg(C)
+    return C
 
 
 def update_cfg(c: AttrDict) -> AttrDict:
-    """Fill the derived values (``odtpu.utils.config.update_cfg``)."""
+    """Fill the derived values (``odtpu.utils.config.update_cfg``):
+    ``DATASET.DATASET_DIR`` only where it is empty."""
+    if not c.DATASET.DATASET_DIR:
+        c.DATASET.DATASET_DIR = osp.abspath(
+            osp.join(c.GENERAL.ROOT_DIR, "data", c.DATASET.SUB_DIR))
     c.MODEL.NUM_CLASSES = c.DATASET.NUM_CLASSES + 1  # + background
     c.MODEL.IMAGE_SIZE = tuple(c.DATASET.IMAGE_SIZE)
     return c
@@ -116,22 +153,22 @@ _IMAGE512 = dict(STEPS=[8, 16, 32, 64, 128, 256, 512],
                                 [2]],
                  MIN_SIZES=[35.84, 76.8, 153.6, 230.4, 307.2, 384.0, 460.8],
                  MAX_SIZES=[76.8, 153.6, 230.4, 307.2, 384.0, 460.8, 537.6])
-_COCO = dict(NAME="COCO2014", TEST_SETS=(("2014", "minival"),),
-             NUM_CLASSES=80, NUM_EVAL_PICS=1024)
+_COCO = dict(NAME="COCO2014", SUB_DIR="coco", TRAIN_SETS=(("2014", "train"),),
+             TEST_SETS=(("2014", "minival"),), NUM_CLASSES=80,
+             EVAL_BATCH_SIZE=32, NUM_EVAL_PICS=1024)
 _COCO_TRAIN = dict(MAX_ITER=400000, EVAL_ITER=40000, SAVE_ITER=10000,
                    LR_SCHEDULER=dict(STEPS=(280000, 360000, 400000)))
 
-# name -> (the yml it stands for, what it sets over the defaults); the
-# keys the port has no use for (SUB_DIR, TRAIN_SETS, EVAL_BATCH_SIZE)
-# are left out
+# name -> (the yml it stands for, what it sets over the defaults)
 CFGS = {
     "ssd_vgg16_voc": ("cfgs/base/ssd_vgg16_voc.yml", {}),
     "ssd_vgg16_coco": ("cfgs/base/ssd_vgg16_coco.yml",
                        dict(DATASET=_COCO, TRAIN=_COCO_TRAIN)),
     "ssd_vgg16_coco_image512": (
         "cfgs/base/ssd_vgg16_coco_image512.yml",
-        dict(DATASET=dict(_COCO, TEST_SETS=("minival2014",),
-                          IMAGE_SIZE=(512, 512)),
+        dict(DATASET=dict(_COCO, TRAIN_SETS=("valminusminival2014",
+                                             "train2014"),
+                          TEST_SETS=("minival2014",), IMAGE_SIZE=(512, 512)),
              MODEL=dict(_IMAGE512, MIN_SIZES=[20.48, 51.2, 133.12, 215.04,
                                               296.96, 378.88, 460.8],
                         MAX_SIZES=[51.2, 133.12, 215.04, 296.96, 378.88,
@@ -186,6 +223,50 @@ def load_cfg(name: str = "ssd_vgg16_voc") -> AttrDict:
     if name not in CFGS:
         raise KeyError("unknown config {!r}; known: {}".format(
             name, sorted(CFGS)))
-    c = default_cfg()
+    c = _defaults()
     _merge(CFGS[name][1], c)
     return update_cfg(c)
+
+
+def resolve_cfg_args(args) -> str:
+    """The :data:`CFGS` name the command lines' ``args`` ask for; fills
+    ``args.cfg_name`` and ``args.job_group``, the run's name, as
+    ``odtpu.utils.config.resolve_cfg_args`` does.
+
+    ``--cfg`` names a yml by its path (``cfgs/<group>/<name>.yml``, from
+    the checkout's root or the current directory): it must be one that
+    ``CFGS`` stands for, since the port reads no yaml. The run is named
+    after it unless ``--cfg_name``/``--job_group`` are given. Without
+    ``--cfg``, ``--cfg_name`` (default ssd_vgg16_voc) picks the entry of
+    ``CFGS`` and ``--job_group`` (default base) only names the run.
+    """
+    if getattr(args, "cfg", ""):
+        parts = osp.normpath(osp.abspath(args.cfg)).split(osp.sep)
+        names = [n for n, (yml, _) in CFGS.items()
+                 if yml and parts[-3:] == yml.split("/")]
+        if not names:
+            raise SystemExit(
+                "--cfg {}: not a yml that odtpu_torch.utils.config.CFGS "
+                "stands for ({}); the port reads no yaml".format(
+                    args.cfg, ", ".join(y for y, _ in CFGS.values() if y)))
+        if not getattr(args, "cfg_name", ""):
+            args.cfg_name = osp.splitext(parts[-1])[0]
+        if not getattr(args, "job_group", ""):
+            args.job_group = parts[-2]
+        name = names[0]
+    else:
+        args.cfg_name = getattr(args, "cfg_name", "") or "ssd_vgg16_voc"
+        args.job_group = getattr(args, "job_group", "") or "base"
+        if args.cfg_name not in CFGS:
+            raise SystemExit("--cfg_name {}: not one of {}".format(
+                args.cfg_name, ", ".join(sorted(CFGS))))
+        name = args.cfg_name
+    data = CFGS[name][1].get("DATASET", {})
+    flat = [s for k in ("TRAIN_SETS", "TEST_SETS") for s in data.get(k, ())
+            if isinstance(s, str)]
+    if flat:
+        raise SystemExit(
+            "{}: its yml names data sets as {}, where the datasets take "
+            "(year, set) pairs; odtpu reads that yml the same way".format(
+                name, flat))
+    return name

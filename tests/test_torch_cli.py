@@ -1,0 +1,195 @@
+"""``python -m odtpu_torch.train`` and ``python -m odtpu_torch.eval`` on the
+CPU, at full width (SSD300-VGG16) on a small seeded VOC tree.
+
+The train command line runs through ``setup``/``run`` (so that the test
+points the cfg at its tree, a batch of 2 and float32): 2 steps from a
+``--basenet`` npz, then ``--auto_resume`` to 4. The eval command line
+then scores the last checkpoint. Held exactly: its mAP and the
+per-class detection files it writes equal those of the train run's last
+validation (the same weights, the same eval step, the same images).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from odtpu_torch import train
+from odtpu_torch.eval import cli
+from odtpu_torch.infer import random_state_dict
+from odtpu_torch.utils import logging as tlogging
+from odtpu_torch.utils.config import load_cfg, resolve_cfg_args
+
+from synth import make_voc
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _point_at(cfg, voc):
+    cfg.DATASET.DATASET_DIR = voc
+    cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+    cfg.DATASET.TRAIN_BATCH_SIZE = 2
+    cfg.DATASET.EVAL_BATCH_SIZE = 2
+    cfg.DATASET.NUM_WORKERS = 2
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.SAVE_ITER = 1
+    cfg.TRAIN.EVAL_ITER = 2
+    cfg.TRAIN.LOG_LOSS_ITER = 1
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    work = tmp_path_factory.mktemp("cli")
+    voc = str(work / "voc")
+    make_voc(voc, setname="trainval", n_images=4, seed=0, min_size=150,
+             max_size=420)
+    make_voc(voc, setname="test", n_images=4, seed=1, start_id=4)
+    # the basenet: the served seeded weights' conv1_1, so boxes stay finite
+    w = random_state_dict(load_cfg(), seed=0)["backbone.conv1_1.conv.weight"]
+    basenet = str(work / "basenet.npz")
+    np.savez(basenet, **{"conv1_1/kernel": w.permute(2, 3, 1, 0).numpy()})
+    out, logs = str(work / "out"), str(work / "logs")
+    results = []
+    for argv in (["--max_iter", "2", "--basenet", basenet],
+                 ["--max_iter", "4", "--auto_resume"]):
+        args = train.parse_args(["--device", "cpu", "--output_dir", out]
+                                + argv)
+        cfg, out_dir, _ = train.setup(args)
+        _point_at(cfg, voc)
+        results.append(train.run(args, cfg, out_dir, logs))
+    eargs = cli.parse_args(["--device", "cpu", "--ckpt",
+                            os.path.join(out, "ckpt"), "--output_dir",
+                            str(work / "eval")])
+    ecfg = cli.setup(eargs)
+    _point_at(ecfg, voc)
+    scored = cli.run(eargs, ecfg)
+    return {"work": work, "out": out, "logs": logs, "train": results,
+            "eval": scored}
+
+
+def test_train_command_line_trains_saves_and_resumes(runs):
+    first, second = runs["train"]
+    assert first["step"] == 2 and second["step"] == 4
+    assert [e["step"] for e in first["evals"]] == [2]
+    assert [e["step"] for e in second["evals"]] == [4]
+    assert second["ckpt_steps"] == [1, 2, 3, 4]
+    assert [m["step"] for m in second["losses"]] == [3]  # read a step late
+    for m in first["losses"] + second["losses"]:
+        assert np.isfinite(m["loss"]) and m["num_pos"] > 0
+    used = json.load(open(os.path.join(runs["out"], "config_used.json")))
+    assert used["DATASET"]["DATASET_DIR"].endswith("voc")
+    assert used["TPU"]["COMPUTE_DTYPE"] == "float32"
+    assert used["DATASET"]["TRAIN_SETS"] == [["2007", "trainval"]]
+
+
+def test_eval_command_line_reproduces_the_last_validation(runs):
+    scored = runs["eval"]
+    last = runs["train"][1]["evals"][-1]
+    assert scored["maps"] == last["maps"]
+    assert scored["weights"].endswith("step 4")
+    assert scored["timing"]["images"] == 4
+    train_eval = Path(runs["out"]) / "eval"
+    files = sorted(p.name for p in train_eval.glob("det_*.txt"))
+    assert len(files) == 20
+    n_rows = 0
+    for name in files:
+        got = (runs["work"] / "eval" / name).read_text()
+        assert got == (train_eval / name).read_text(), name
+        n_rows += len(got.splitlines())
+    assert n_rows > 0  # the trained weights detect something
+
+
+def test_tensorboard_scalars_written_when_available(runs):
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        assert not os.path.isdir(runs["logs"])
+    else:
+        assert any(f.startswith("events.") for f in os.listdir(runs["logs"]))
+
+
+def test_tbwriter_without_tensorboard_prints_and_writes_nothing(
+        tmp_path, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    tb = tlogging.TBWriter(str(tmp_path / "tb"))
+    tb.add_scalars("train", {"loss": 1.0}, 3)
+    tb.close()
+    assert tb.writer is None
+    assert len(capsys.readouterr().out.strip().splitlines()) == 1
+    assert not (tmp_path / "tb").exists()
+
+
+def test_profile_trace_of_the_steps(tmp_path):
+    trace = train._Trace(str(tmp_path / "prof"), torch.device("cpu"))
+    trace.before_step(train.PROFILE_STEPS[0] - 1)
+    assert trace.prof is None
+    trace.before_step(train.PROFILE_STEPS[0])
+    torch.ones(8).sum()
+    trace.stop()
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    trace.stop()  # a second stop is a no-op
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--cfg_name", "ssd_vgg16_vox"], "not one of"),
+    (["--cfg", "cfgs/tests/flagship_synth.yml"], "reads no yaml"),
+    (["--cfg_name", "ssd_vgg16_coco_image512"], r"\(year, set\) pairs"),
+    ([], "no CUDA device"),
+])
+def test_command_lines_refuse(argv, match, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    device = [] if match == "no CUDA device" else ["--device", "cpu"]
+    with pytest.raises(SystemExit, match=match):
+        train.setup(train.parse_args(argv + device + [
+            "--output_dir", "/nonexistent/never"]))
+    with pytest.raises(SystemExit, match=match):
+        cli.setup(cli.parse_args(argv + device))
+
+
+def test_eval_refuses_int8_and_train_refuses_visualisation(tmp_path):
+    with pytest.raises(SystemExit, match="quant"):
+        cli.setup(cli.parse_args(["--quant", "int8", "--device", "cpu"]))
+    args = train.parse_args(["--device", "cpu", "--output_dir",
+                             str(tmp_path)])
+    cfg, out, log = train.setup(args)
+    cfg.LOG.SHOW_AUG_STEPS = True
+    with pytest.raises(NotImplementedError, match="SHOW_AUG_STEPS"):
+        train.run(args, cfg, out, log)
+
+
+@pytest.mark.parametrize("argv,name,run", [
+    ({}, "ssd_vgg16_voc", ("ssd_vgg16_voc", "base")),
+    ({"cfg": "cfgs/vgg/fpn_vgg16_voc.yml"}, "fpn_vgg16_voc",
+     ("fpn_vgg16_voc", "vgg")),
+    ({"cfg": str(ROOT / "cfgs/base/ssd_vgg16_coco.yml"), "cfg_name": "mine"},
+     "ssd_vgg16_coco", ("mine", "base")),
+    ({"cfg_name": "rfbnet300_vgg16_voc", "job_group": "rfb"},
+     "rfbnet300_vgg16_voc", ("rfbnet300_vgg16_voc", "rfb")),
+])
+def test_resolve_cfg_args(argv, name, run):
+    args = train.parse_args(["--{}={}".format(k, v)
+                             for k, v in argv.items()])
+    assert resolve_cfg_args(args) == name
+    assert (args.cfg_name, args.job_group) == run
+
+
+@pytest.mark.parametrize("module", ["odtpu_torch.train", "odtpu_torch.eval"])
+def test_module_entry_points(module):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", module, "--help"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0 and "--cfg_name" in proc.stdout
+    proc = subprocess.run([sys.executable, "-m", module, "--output_dir",
+                           "/nonexistent/never"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr

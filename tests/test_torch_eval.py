@@ -96,8 +96,11 @@ def test_voc_annotations_and_loader_match_odtpu(voc):
         got, want = ds[i], jds[i]
         for k in ("image", "boxes", "labels", "extra"):
             np.testing.assert_array_equal(got[k], want[k])
-    with pytest.raises(ValueError, match="reader"):
-        VOCDetection(voc, TEST_SETS)
+    # with no reader the dataset decodes through image.imread (the tree's
+    # JPEGs through cv2 here)
+    default = VOCDetection(voc, TEST_SETS)
+    for i in range(len(ds)):
+        np.testing.assert_array_equal(default[i]["image"], jds[i]["image"])
 
     jcfg = jdefault_cfg()
     jcfg.DATASET.DATASET_DIR = voc
