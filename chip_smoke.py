@@ -123,12 +123,34 @@ Phases, each printing one JSON line:
    (``--model_npz``) gives mAP@0.5 and mAP@[.5:.95] in [0, 1] with one
    ``nms_rows`` launch per batch; ``EvalCOCO`` fed the ground truth as
    its rows scores 1.0 and 1.0.
+14. int8: seeded SSD300 and every configuration of ``families`` served
+   in bfloat16 and then through ``Detector(quant="int8")`` (s8 x s8 ->
+   s32 convs by ``torch._int_mm``, the heads in bfloat16), uint8 batches
+   of 32, 3 warm-up and 10 timed: images/s, ms/batch, ``forward_ms``
+   (both modes in the same run), peak memory; ``nms_rows`` must launch
+   once per batch and ``nms_mask`` never, ``torch._int_mm`` once per
+   quantized conv a batch; the int8 rows (batch 2) must equal those of
+   the same model with every quantized conv routed through
+   ``ops.quant.conv_int8_plain``; printed, gating nothing (seeded
+   weights): the share of bfloat16 rows that an int8 row keeps (same
+   class, IoU >= 0.5). SSD300 adds an ``int8_split`` line: quantize,
+   tap gather, ``_int_mm`` and rescale by CUDA events, per conv and
+   summed, each ``_int_mm`` beside its bound (dense int8 operations or
+   bytes, whichever takes longer).
+15. serve: ``odtpu_torch.serve`` on 127.0.0.1 (a free port) in a thread,
+   in bfloat16 and in int8: ``/healthz``, then 20 ``POST /detect`` of
+   seeded PPM images at VOC's sizes (500x375, 375x500); every response
+   carries detections and equals ``build_engine``'s ``infer`` called
+   directly on the same bytes; one 404 and one 400. p50 and p90 of the
+   request's wall time and of ``latency_ms``; one ``nms_rows`` launch
+   per request.
 Each tree goes under ``build/`` and is removed after its phase. Then each
-phase's seconds, the ``kernels`` line (the host sampler under ``host``),
-and last ``{"ok": true, "device": ...}``, printed only when every phase
-passed.
+phase's seconds, the ``kernels`` line (the host sampler under ``host``,
+the int8 GEMM under ``library``), and last ``{"ok": true, "device":
+...}``, printed only when every phase passed.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -139,14 +161,17 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
 from odtpu_torch import eval_step, train
+from odtpu_torch import serve as http_serve
 from odtpu_torch.data import augment, dataset_factory, native
 from odtpu_torch.data.device_aug import draw_params
-from odtpu_torch.data.image import write_ppm
+from odtpu_torch.data.image import imdecode, write_ppm
 from odtpu_torch.data.loader import DetLoader, NetworkInput
 from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
 from odtpu_torch.eval import cli
@@ -155,7 +180,7 @@ from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
 from odtpu_torch.models import create_model, probe_layer_dims
 from odtpu_torch.models.common import Conv
-from odtpu_torch.ops import detect
+from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
@@ -164,10 +189,12 @@ from odtpu_torch.train_step import create_train_state, make_train_step
 from odtpu_torch.utils.checkpoint import Checkpointer, to_odtpu_params
 from odtpu_torch.utils.config import default_cfg, load_cfg
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores
+# H100 SXM peaks (NVIDIA H100 Tensor Core GPU data sheet): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and dense int8 tensor-core
+# operations/s (3,958 TOPS is the sparse figure, half of it dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
 # float32 operations per (i, j) pair in the kernel's overlap test: four
 # max/min, two subtracts, two clamps, the intersection product, the
 # union's add and subtract, the threshold product and two compares
@@ -576,14 +603,15 @@ def dense_contract(step, loc, conf, label, calls=5):
             "kept": int((dense[..., 0] > 0).sum()), "equal_cpu": True}
 
 
-def serve(label, cfg, warmup, batches):
+def serve(label, cfg, warmup, batches, quant_mode=None):
     """Serve seeded uint8 batches of ``BATCH`` images of ``cfg`` through
-    ``Detector`` on the card, the counts reset just before the timed
-    batches and read just after: one ``nms_rows`` launch per batch and no
-    ``nms_mask``, rows of the right shape, finite, some kept. Returns
-    (detector, weights, images, the serving numbers)."""
+    ``Detector(quant=quant_mode)`` on the card, the counts reset just
+    before the timed batches and read just after: one ``nms_rows`` launch
+    per batch and no ``nms_mask``, rows of the right shape, finite, some
+    kept; ``torch._int_mm`` calls counted beside them. Returns (detector,
+    weights, images, the serving numbers)."""
     weights = random_state_dict(cfg, seed=0)
-    det = Detector(cfg, weights, device="cuda")
+    det = Detector(cfg, weights, device="cuda", quant=quant_mode)
     images = torch.from_numpy(
         random_images(BATCH, cfg.MODEL.IMAGE_SIZE, 0)).cuda()
     for _ in range(warmup):
@@ -592,12 +620,14 @@ def serve(label, cfg, warmup, batches):
     torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
+    int_mm = quant.INT_MM_CALLS
     t0 = time.perf_counter()
     for _ in range(batches):
         out = det(images)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = counts()
+    int_mm = quant.INT_MM_CALLS - int_mm
     peak = torch.cuda.max_memory_allocated()
     if launches != {"nms_mask": 0, "nms_rows": batches}:
         raise AssertionError("{}: {} batches made NMS kernel launches {}; "
@@ -618,7 +648,8 @@ def serve(label, cfg, warmup, batches):
         "images_per_s": BATCH * batches / seconds,
         "ms_per_batch": 1e3 * seconds / batches,
         "max_memory_allocated": peak, "launches": launches,
-        "kept_rows": kept, "dropped": int(dropped.sum())}
+        "int_mm_calls": int_mm, "kept_rows": kept,
+        "dropped": int(dropped.sum())}
 
 
 def phase_main_path(dtype, warmup=3, batches=20):
@@ -2023,6 +2054,273 @@ def phase_coco(n=64):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the configurations the int8 phase serves: the main path's and the
+# families'
+INT8_CFGS = ("ssd_vgg16_voc",) + FAMILIES
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Every quantized conv through ``ops.quant.conv_int8_plain`` (float64
+    convs over the same integers) in place of ``torch._int_mm``."""
+    route = quant.conv_int8
+    quant.conv_int8 = quant.conv_int8_plain
+    try:
+        yield
+    finally:
+        quant.conv_int8 = route
+
+
+def kept_share(want, got, iou=0.5):
+    """The share of ``want``'s rows [B, R, 6] (score > 0) that a row of
+    ``got`` of the same class overlaps by IoU >= ``iou``."""
+    kept = total = 0
+    for w, g in zip(want, got):
+        w, g = w[w[:, 0] > 0], g[g[:, 0] > 0]
+        total += w.shape[0]
+        if not w.shape[0] or not g.shape[0]:
+            continue
+        lt = torch.maximum(w[:, None, 1:3], g[None, :, 1:3])
+        rb = torch.minimum(w[:, None, 3:5], g[None, :, 3:5])
+        inter = (rb - lt).clamp(min=0).prod(-1)
+        area_w = (w[:, 3:5] - w[:, 1:3]).prod(-1)
+        area_g = (g[:, 3:5] - g[:, 1:3]).prod(-1)
+        union = area_w[:, None] + area_g[None, :] - inter
+        hit = (inter >= iou * union) & (w[:, None, 5] == g[None, :, 5])
+        kept += int(hit.any(1).sum())
+    return kept / max(total, 1)
+
+
+def quantized_convs(model):
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, Conv) and m.quantizable]
+
+
+def serve_int8(name, warmup=3, batches=10):
+    """One configuration served in bfloat16, then in int8 convs: the two
+    modes' numbers side by side, the int8 launches checked, the int8
+    rows (batch 2) held to the plain int8 route's."""
+    cfg = load_cfg(name)
+    served, rows = {}, {}
+    for mode in ("", "int8"):
+        det, _, images, served[mode] = serve(name, cfg, warmup, batches,
+                                             mode)
+        served[mode]["forward_ms"] = cuda_ms(
+            lambda: det.step.forward(images), 5)
+        rows[mode] = det(images)["rows"]
+        if not mode:  # free the bf16 model before the int8 one's batches
+            del det
+            gc.collect()
+            torch.cuda.empty_cache()
+    bf16, int8 = served[""], served["int8"]
+    n_convs = len(quantized_convs(det.model))
+    if bf16["int_mm_calls"] != 0 or int8["int_mm_calls"] != batches * n_convs:
+        raise AssertionError(
+            "{}: {} batches made {} (bf16) and {} (int8) _int_mm calls; "
+            "want one per quantized conv ({}) a batch in int8 only".format(
+                name, batches, bf16["int_mm_calls"], int8["int_mm_calls"],
+                n_convs))
+    with torch.inference_mode():
+        got = det(images[:2])["rows"]
+        with plain_int8():
+            plain = det(images[:2])["rows"]
+    if not torch.equal(got, plain):
+        raise AssertionError("{}: int8 rows != the plain int8 route's: {} "
+                             "of {} differ".format(
+                                 name, int((got != plain).sum()),
+                                 plain.numel()))
+    result = {"phase": "int8", "cfg": name, "batch": BATCH,
+              "batches": batches, "warmup": warmup,
+              "quantized_convs": n_convs, "bfloat16": bf16, "int8": int8,
+              "int8_over_bf16_ms": int8["ms_per_batch"] / bf16["ms_per_batch"],
+              "rows_equal_plain": True,
+              "bf16_rows_kept_by_int8": kept_share(rows[""], rows["int8"]),
+              "nvidia_smi": power_limit()}
+    emit(result)
+    return det, images, result
+
+
+def int8_split(det, images, iters=5):
+    """SSD300's int8 convs by stage on their real inputs (batch 32), by
+    CUDA events: quantize (the activation), tap gather, ``_int_mm``,
+    rescale; each ``_int_mm`` beside its bound and its plain version (a
+    float64 product of the same operands, which it must equal)."""
+    inputs = []
+
+    def grab(module, args):
+        inputs.append((module, args[0]))
+
+    convs = quantized_convs(det.model)
+    hooks = [m.register_forward_pre_hook(grab) for _, m in convs]
+    with torch.inference_mode():
+        det.step.forward(images)
+    for h in hooks:
+        h.remove()
+    names = {m: n for n, m in convs}
+    rows, sums = [], dict.fromkeys(
+        ("quantize", "taps", "int_mm", "rescale", "weight_uncached",
+         "int_mm_bound", "int_mm_plain"), 0.0)
+    max_err = 0
+    with torch.inference_mode():
+        for module, x in inputs:
+            c = module.conv
+            o, _, kh, kw = c.weight.shape
+            x_q, s_x = quant.quantize_act_int8(x)
+            b, s_w = quant.weight_operand(c.weight, module.int8_cache)
+            taps = quant.tap_matrix(x_q, (kh, kw), c.stride, c.padding,
+                                    c.dilation)
+            y = quant.int_mm(taps, b)
+            ho = quant.out_size(x.shape[2], kh, c.stride[0], c.padding[0],
+                                c.dilation[0])
+            wo = quant.out_size(x.shape[3], kw, c.stride[1], c.padding[1],
+                                c.dilation[1])
+            y4 = y[:, :o].reshape(x.shape[0], ho, wo, o).permute(0, 3, 1, 2)
+            ms = {
+                "quantize": cuda_ms(lambda: quant.quantize_act_int8(x),
+                                    iters),
+                "weight_uncached": cuda_ms(
+                    lambda: quant.weight_operand(c.weight), iters),
+                "taps": cuda_ms(lambda: quant.tap_matrix(
+                    x_q, (kh, kw), c.stride, c.padding, c.dilation), iters),
+                "int_mm": cuda_ms(lambda: quant.int_mm(taps, b), iters),
+                "rescale": cuda_ms(lambda: quant.rescale(
+                    y4, s_x, s_w, module.dtype), iters),
+                "int_mm_plain": cuda_ms(
+                    lambda: taps.double() @ b.double(), 2)}
+            max_err = max(max_err, int(
+                (y.double() - taps.double() @ b.double()).abs().max()))
+            m, kp = taps.shape
+            ops = 2 * m * kh * kw * c.in_channels * o
+            nbytes = taps.numel() + b.numel() + y.numel() * 4
+            ops_ms = 1e3 * ops / PEAK_INT8_OPS_PER_S
+            bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+            ms["int_mm_bound"] = max(ops_ms, bytes_ms)
+            for k in sums:
+                sums[k] += ms[k]
+            rows.append({"conv": names[module], "M": m, "K": kp,
+                         "N": b.shape[1], "O": o, **ms,
+                         "int_mm_bound_by": ("operations" if ops_ms > bytes_ms
+                                             else "bytes"),
+                         "int_mm_tops": ops / ms["int_mm"] / 1e9,
+                         "taps_bytes": taps.numel()})
+    if max_err:
+        raise AssertionError("_int_mm != its float64 product by {}".format(
+            max_err))
+    ops_bound = sum(r["int_mm_bound"] for r in rows
+                    if r["int_mm_bound_by"] == "operations")
+    result = {"phase": "int8_split", "cfg": "ssd_vgg16_voc",
+              "batch": images.shape[0], "convs": len(rows),
+              "sum_ms": sums,
+              "stages_sum_ms": sum(sums[k] for k in (
+                  "quantize", "taps", "int_mm", "rescale")),
+              "taps_bytes": sum(r["taps_bytes"] for r in rows),
+              "int_mm_max_abs_err": max_err,
+              "int_mm_bound_by": ("operations" if ops_bound
+                                  > sums["int_mm_bound"] / 2 else "bytes"),
+              "per_conv": rows, "nvidia_smi": power_limit()}
+    emit(result)
+    return result
+
+
+def phase_int8():
+    t0 = time.perf_counter()
+    results, split = [], None
+    for name in INT8_CFGS:
+        det, images, result = serve_int8(name)
+        if name == "ssd_vgg16_voc":
+            split = int8_split(det, images)
+        results.append(result)
+        del det, images
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "int8_done", "configurations": len(results),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": power_limit()})
+    return results, split
+
+
+def post(url, data=None):
+    """(status, JSON body, wall ms) of a GET, or of a POST of ``data``."""
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body), 1e3 * (time.perf_counter() - t0)
+
+
+def percentiles(values):
+    v = np.asarray(values, np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p90": float(np.percentile(v, 90)), "max": float(v.max())}
+
+
+def serve_http(quant_mode, bodies, conf):
+    """``odtpu_torch.serve`` in a thread on a free port of 127.0.0.1 in
+    one mode: the requests timed, each response held to the direct
+    ``infer`` on the same bytes, the NMS launches counted."""
+    infer, _ = http_serve.build_engine(load_cfg("ssd_vgg16_voc"),
+                                       quant=quant_mode, device="cuda")
+    server = http_serve.make_server(infer, host="127.0.0.1", port=0,
+                                    conf=conf)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:{}".format(server.server_address[1])
+    try:
+        if post(url + "/healthz")[:2] != (200, {"ok": True}):
+            raise AssertionError("/healthz")
+        reset_counts()
+        int_mm = quant.INT_MM_CALLS
+        answers = [post(url + "/detect", body) for body in bodies]
+        launches = counts()
+        int_mm = quant.INT_MM_CALLS - int_mm
+        for i, (body, (status, got, _)) in enumerate(zip(bodies, answers)):
+            if status != 200 or not got["detections"]:
+                raise AssertionError("request {}: {} {}".format(
+                    i, status, str(got)[:200]))
+            if got["detections"] != infer(imdecode(body), conf):
+                raise AssertionError("request {}: the server's detections "
+                                     "!= infer's on the same bytes".format(i))
+        if post(url + "/nothing")[0] != 404 \
+                or post(url + "/detect", b"no image")[0] != 400:
+            raise AssertionError("the 404 or the 400 did not come")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if launches != {"nms_mask": 0, "nms_rows": len(bodies)}:
+        raise AssertionError("{} requests made NMS launches {}".format(
+            len(bodies), launches))
+    return {"requests": len(bodies), "launches": launches,
+            "int_mm_calls": int_mm,
+            "wall_ms": percentiles([a[2] for a in answers]),
+            "latency_ms": percentiles([a[1]["latency_ms"] for a in answers]),
+            "detections_per_response": float(np.mean(
+                [len(a[1]["detections"]) for a in answers]))}
+
+
+def phase_serve(requests=20, conf=CONF):
+    """The HTTP server in bfloat16 and in int8 on seeded PPM images at
+    VOC's sizes."""
+    bodies = []
+    for i in range(requests):
+        h, w = VOC_SIZES[i % 2]
+        img = random_images(1, (h, w), 100 + i)[0]
+        bodies.append(b"P6\n%d %d\n255\n" % (w, h)
+                      + np.ascontiguousarray(img[:, :, ::-1]).tobytes())
+    result = {"phase": "serve", "cfg": "ssd_vgg16_voc", "conf": conf,
+              "sizes": [list(s) for s in VOC_SIZES[:2]]}
+    for label, mode in (("bfloat16", ""), ("int8", "int8")):
+        result[label] = serve_http(mode, bodies, conf)
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["nvidia_smi"] = power_limit()
+    emit(result)
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -2051,6 +2349,8 @@ def main():
     data = timed("data", phase_data)
     cli_run = timed("cli", phase_cli)
     coco = timed("coco", phase_coco)
+    int8, split = timed("int8", phase_int8)
+    served = timed("serve", phase_serve)
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -2073,7 +2373,10 @@ def main():
                                  for r in fitted_rfb["runs"]),
             "cli_train": cli_run["launches"]["train"][name],
             "cli_eval": cli_run["launches"]["eval"][name],
-            "coco_eval": coco["launches"][name]}
+            "coco_eval": coco["launches"][name],
+            "int8": {r["cfg"]: r["int8"]["launches"][name] for r in int8},
+            "serve": {mode: served[mode]["launches"][name]
+                      for mode in ("bfloat16", "int8")}}
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
     # the host sampler is C++ for the host, not a kernel of the card: it
@@ -2092,7 +2395,31 @@ def main():
             "plain_ms": sampler["plain_ms_per_item"], "bound_ms": None,
             "bound_by": "not measured: no host memory rate",
             "library_ms": None, "cpu_count": data["cpu_count"]}
-    emit({"kernels": [mask, rows], "host": [host]})
+    # the int8 GEMM is cuBLASLt's, neither a TPU kernel nor written here:
+    # it stands under a key of its own
+    ssd_int8 = next(r for r in int8 if r["cfg"] == "ssd_vgg16_voc")
+    library = {"name": "torch._int_mm", "route": "library",
+               "source": "odtpu_torch/ops/quant.py",
+               "replaces": "odtpu/ops/quant.py:63 lax.conv_general_dilated "
+                           "(XLA's int8 conv, not a TPU kernel)",
+               "launches": ssd_int8["int8"]["int_mm_calls"],
+               "path": "Detector(quant='int8') on SSD300, {} batches".format(
+                   ssd_int8["batches"]),
+               "launches_by_path": {
+                   "int8": {r["cfg"]: r["int8"]["int_mm_calls"]
+                            for r in int8},
+                   "serve": {mode: served[mode]["int_mm_calls"]
+                             for mode in ("bfloat16", "int8")}},
+               "max_abs_err": split["int_mm_max_abs_err"],
+               "ms": split["sum_ms"]["int_mm"],
+               "plain_ms": split["sum_ms"]["int_mm_plain"],
+               "bound_ms": split["sum_ms"]["int_mm_bound"],
+               "bound_by": split["int_mm_bound_by"],
+               "library_ms": split["sum_ms"]["int_mm"],
+               "note": "SSD300's {} quantized convs at batch 32, summed; "
+                       "library_ms is the call itself".format(
+                           split["convs"])}
+    emit({"kernels": [mask, rows], "host": [host], "library": [library]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     sys.stdout.flush()

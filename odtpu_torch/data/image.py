@@ -1,14 +1,15 @@
-"""Image files in and out: ``imread`` (uint8 BGR HWC, as ``cv2.imread``)
-and ``write_ppm``.
+"""Images in and out: ``imread`` and ``imdecode`` (uint8 BGR HWC, as
+``cv2.imread`` and ``cv2.imdecode``) and ``write_ppm``.
 
 Counterpart of the ``cv2.imread`` calls of ``odtpu/data/voc.py:90``,
-``coco.py:72`` and ``cache.py:49``. The format comes from the file's
-first bytes, not from its name, as cv2 decides it. Binary PPM (``P6``,
-maxval 255) is decoded here with numpy, so a machine without OpenCV
-reads it; any other format goes through ``cv2``, imported inside the
-call, and without cv2 the call raises an ``ImportError`` that names the
-format. Like ``cv2.imread``, a file that is missing, empty or cannot be
-decoded gives None.
+``coco.py:72`` and ``cache.py:49``, and of ``tools/serve.py``'s
+``cv2.imdecode`` (lines 136-137). The format comes from the first bytes,
+not from a file's name, as cv2 decides it. Binary PPM (``P6``, maxval
+255) is decoded here with numpy, so a machine without OpenCV reads it;
+any other format goes through ``cv2``, imported inside the call. Without
+cv2, bytes of a known format (JPEG, PNG, ...) raise an ``ImportError``
+that names it, and bytes of no known format give None. Like cv2, a file
+that is missing, empty or cannot be decoded gives None.
 """
 
 from __future__ import annotations
@@ -77,13 +78,10 @@ def _read_ppm(data: bytes):
     return np.ascontiguousarray(rgb.reshape(height, width, 3)[:, :, ::-1])
 
 
-def imread(path):
-    """``cv2.imread(path)``: uint8 BGR [H, W, 3], or None."""
-    try:
-        with open(path, "rb") as f:
-            data = f.read()
-    except OSError:
-        return None
+def imdecode(data: bytes, source: str = "the bytes"):
+    """``cv2.imdecode(data, cv2.IMREAD_COLOR)``: uint8 BGR [H, W, 3], or
+    None. ``source`` names the bytes in the error raised for a format
+    that needs cv2 where there is none."""
     if data[:2] == b"P6":
         img = _read_ppm(data)
         if not isinstance(img, str):
@@ -93,11 +91,24 @@ def imread(path):
     try:
         import cv2
     except ImportError as e:
+        fmt = format_of(data[:16])
+        if fmt == "unknown format":
+            return None
         raise ImportError(
-            "{} holds a {} image, which needs OpenCV (cv2) to decode; "
+            "{}: a {} image, which needs OpenCV (cv2) to decode; "
             "without it only binary PPM (P6, maxval 255) is read".format(
-                path, format_of(data[:16]))) from e
-    return cv2.imread(str(path))
+                source, fmt)) from e
+    return cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+
+
+def imread(path):
+    """``cv2.imread(path)``: uint8 BGR [H, W, 3], or None."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    return imdecode(data, str(path))
 
 
 def write_ppm(path, img: np.ndarray) -> None:

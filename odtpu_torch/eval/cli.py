@@ -4,7 +4,7 @@ Counterpart of ``eval.py`` (the reference's eval.py)::
 
     python -m odtpu_torch.eval --cfg_name ssd_vgg16_voc [--job_group base]
         [--ckpt DIR | --model_npz NPZ] [--output_dir eval_out]
-        [--device cuda]
+        [--quant int8] [--device cuda]
 
 builds the detector of one of ``utils.config.CFGS`` (by name, or by its
 yml's path: the port reads no yaml), loads the latest checkpoint of
@@ -15,7 +15,9 @@ the test set of ``DATASET.DATASET_DIR`` (``data/<SUB_DIR>`` under the
 checkout). It prints each class's AP (VOC), the mAP (VOC: mAP@0.5; COCO:
 mAP@0.5 and mAP@[.5:.95]) and the evaluator's timing. Without a
 checkpoint it warns and scores the seeded init, as ``eval.py`` does.
-``--quant int8`` waits for ``ops/quant.py``.
+``--quant int8`` sets ``TPU.QUANT`` and scores with int8 convs
+(``ops/quant.py``; the heads stay in the compute dtype), as
+``eval.py:51-52`` does.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def parse_args(argv=None):
                         "model has batch norm)")
     p.add_argument("--output_dir", default="eval_out")
     p.add_argument("--quant", default="", choices=["", "int8"],
-                   help="int8 serving: not ported yet")
+                   help="quantized serving compute (overrides TPU.QUANT)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -56,14 +58,14 @@ def parse_args(argv=None):
 def setup(args):
     """The cfg ``args`` ask for; the caller may change it (a dataset
     directory, say) before :func:`run`."""
-    if args.quant:
-        raise SystemExit("--quant {} needs ops/quant.py, which is not "
-                         "ported to odtpu_torch yet".format(args.quant))
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
-    return load_cfg(resolve_cfg_args(args))
+    cfg = load_cfg(resolve_cfg_args(args))
+    if args.quant:
+        cfg.TPU.QUANT = args.quant
+    return cfg
 
 
 def _weights(args, cfg):

@@ -1,7 +1,7 @@
 """The eval step: uint8 images in, cross-class detection rows out.
 
 Counterpart of ``make_eval_step`` in ``odtpu/parallel/train.py:227-293``
-on its unquantized, compact path: uint8 BGR NHWC -> float32, mean
+on its compact path: uint8 BGR NHWC -> float32, mean
 subtract, BGR -> RGB (reference det_dataset.py:49) -> forward ->
 the model's ``decode`` (RefineDet's is its two-step decode,
 ``train.py:259-268``) -> per-class NMS -> cross-class top rows plus the ``dropped``
@@ -11,7 +11,11 @@ reference keeps every survivor, so nonzero marks a deviation).
 The forward runs the model in eval mode, as ``odtpu``'s ``train=False``
 apply does: batch norm normalises with its running statistics and leaves
 them as they are. A model in train mode (the train loop's) is put back
-in train mode after each forward.
+in train mode after each forward. It also runs under ``cfg.TPU.QUANT``
+("" or "int8", ``models.set_quant``), as ``odtpu``'s step enters
+``quantized(cfg.TPU.QUANT)`` (``train.py:249-268``), and the model's
+own mode is put back after it: the train loop validates in int8 when
+its config asks for it and trains in the compute dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .models.common import quant_mode, set_quant
 from .ops.detect import _compact, detect_decoded
 
 
@@ -36,6 +41,7 @@ class EvalStep:
         self.conf_thresh = float(cfg.EVAL.CONF_THRESH)
         self.nms_thresh = float(cfg.EVAL.NMS_THRESH)
         self.rows_cap = int(cfg.EVAL.COMPACT_ROWS) or self.top_k
+        self.quant = quant_mode(cfg.TPU.QUANT)
         self.means = torch.tensor([float(m) for m in cfg.DATASET.PIXEL_MEANS],
                                   dtype=torch.float32, device=priors.device)
 
@@ -48,9 +54,11 @@ class EvalStep:
             images = (images.float() - self.means).flip(-1)
         training = self.model.training
         self.model.eval()
+        quant = set_quant(self.model, self.quant)
         try:
             return self.model(images, phase="eval")
         finally:
+            set_quant(self.model, quant)
             self.model.train(training)
 
     def decode(self, *outputs: Tensor) -> tuple[Tensor, Tensor]:

@@ -6,15 +6,18 @@ the ``dropped`` count out, for any configuration of
 ``utils.config.CFGS``:
 
     python -m odtpu_torch.infer --cfg rfbnet300_vgg16_voc --batch 32 \
-        --batches 20 --seed 0 [--npz PATH] [--device cpu]
+        --batches 20 --seed 0 [--npz PATH] [--quant int8] [--device cpu]
 
-prints one JSON line: images/s, ms per batch and the device (on CUDA
-also the card's power limit, which its clocks under load depend on).
+prints one JSON line: images/s, ms per batch, the serving mode
+(``--quant``: "" for the compute dtype, "int8" for dynamic int8 convs),
+the peak device memory and the device (on CUDA also the card's power
+limit, which its clocks under load depend on).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import time
@@ -62,11 +65,17 @@ class Detector:
     :func:`odtpu_torch.utils.checkpoint.from_odtpu_params` and
     :func:`random_state_dict`), else from the model's seeded init.
     ``detector(images)`` takes uint8 BGR [B, H, W, 3] (numpy or tensor)
-    and returns ``{"rows", "dropped"}`` on the device.
+    and returns ``{"rows", "dropped"}`` on the device. ``quant`` ("" or
+    "int8") overrides ``cfg.TPU.QUANT`` on a copy of ``cfg``; None serves
+    as ``cfg`` says.
     """
 
-    def __init__(self, cfg=None, state_dict=None, device="cuda", seed=0):
+    def __init__(self, cfg=None, state_dict=None, device="cuda", seed=0,
+                 quant=None):
         self.cfg = default_cfg() if cfg is None else cfg
+        if quant is not None:
+            self.cfg = copy.deepcopy(self.cfg)
+            self.cfg.TPU.QUANT = quant
         self.device = torch.device(device)
         model, priors, _ = model_factory("eval", self.cfg, self.device, seed)
         if state_dict is not None:
@@ -109,6 +118,9 @@ def main(argv=None):
     ap.add_argument("--npz", default="",
                     help="odtpu checkpoint of that configuration; default: "
                     "random_state_dict(seed)")
+    ap.add_argument("--quant", default="", choices=["", "int8"],
+                    help="serving compute: the compute dtype, or int8 "
+                    "convs (heads in the compute dtype)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -116,6 +128,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
     cfg = load_cfg(args.cfg)
+    cfg.TPU.QUANT = args.quant
     state_dict = (load_odtpu_npz(args.npz) if args.npz
                   else random_state_dict(cfg, seed=args.seed))
     det = Detector(cfg, state_dict=state_dict, device=device)
@@ -129,6 +142,8 @@ def main(argv=None):
     for _ in range(2):  # warm-up: cuDNN plans, the kernel build
         det(images)
     sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(args.batches):
         out = det(images)
@@ -138,13 +153,17 @@ def main(argv=None):
         "images_per_s": args.batch * args.batches / seconds,
         "ms_per_batch": 1e3 * seconds / args.batches,
         "cfg": args.cfg, "batch": args.batch, "batches": args.batches,
-        "dtype": det.cfg.TPU.COMPUTE_DTYPE,
+        "dtype": det.cfg.TPU.COMPUTE_DTYPE, "quant": args.quant,
         "rows_shape": list(out["rows"].shape),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
     }
     if device.type == "cuda":
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device)
         result["power_limit"] = power_limit()
+    else:
+        result["max_memory_allocated"] = None  # not tracked on the CPU
     print(json.dumps(result))
 
 

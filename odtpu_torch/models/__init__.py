@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.priors import prior_factory
-from .common import Conv, L2Norm
+from .common import Conv, L2Norm, set_quant
 from .drn import DRN, drn_d_22, drn_d_24
 from .drnssd import DRNSSD
 from .fpn import FPN
@@ -27,7 +27,8 @@ __all__ = ["SSD", "VGG16", "L2Norm", "MultiBoxHead", "EXTRAS_SPEC",
            "parse_extras", "compute_dtype", "create_model",
            "probe_layer_dims", "model_factory", "init_weights",
            "BASE_REGISTRY", "SSD_REGISTRY", "FPN", "FSSD", "RFBNet",
-           "RefineDet", "DRN", "DRNSSD", "drn_d_22", "drn_d_24"]
+           "RefineDet", "DRN", "DRNSSD", "drn_d_22", "drn_d_24",
+           "set_quant"]
 
 # float64 is the numerical reference that float32 runs are held to
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

@@ -5,6 +5,13 @@ NCHW inside the model. Parameters stay float32; each conv runs in the
 block's compute dtype (bfloat16 serving, or float32), as ``odtpu``'s
 ``param_dtype=float32, dtype=COMPUTE_DTYPE`` does. Batch norm runs in
 float32 (or wider) and casts back, as ``odtpu``'s does.
+
+Every conv of every family is a :class:`Conv`, so int8 serving has one
+switch: :func:`set_quant` sets the mode on each of a model's ``Conv``
+modules, the counterpart of ``odtpu``'s trace-time ``quantized(mode)``
+(lines 15-89). Under ``"int8"`` a ``quantizable`` conv runs
+``ops.quant.conv_int8``; the loc/conf heads opt out and stay in the
+compute dtype.
 """
 
 from __future__ import annotations
@@ -12,6 +19,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from ..ops import quant
+
+# the serving modes of ``TPU.QUANT``: off, or dynamic int8
+QUANT_MODES = ("", "int8")
 
 # the kernel initializers of odtpu's modules, by flax's name: ``Conv``
 # defaults to he_normal, ``rfbnet.BasicConv`` takes flax's default
@@ -78,14 +90,16 @@ class Conv(nn.Module):
     conv has no bias (``odtpu/models/common.py:172``). ``bn_momentum`` is
     torch's: flax's 0.9 (``Conv``) is 0.1 here, flax's 0.99
     (``rfbnet.BasicConv``) 0.01. ``kernel`` and ``padding`` take an int or
-    an (h, w) pair.
+    an (h, w) pair. ``quantizable=False`` keeps the conv in the compute
+    dtype under int8 serving (the loc/conf heads, as ``odtpu``'s).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel=3, stride: int = 1,
                  padding=0, dilation: int = 1, relu: bool = True,
                  batch_norm: bool = False, bn_momentum: float = 0.1,
                  init: str = "he_normal",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 quantizable: bool = True):
         super().__init__()
         if init not in INITS:
             raise ValueError("init {!r}; known: {}".format(init, INITS))
@@ -97,15 +111,49 @@ class Conv(nn.Module):
         self.relu = relu
         self.init = init
         self.dtype = dtype
+        self.quantizable = quantizable
+        self.quant = ""  # set model-wide by set_quant
+        # the int8 weight operand, made once per version of the weight
+        self.int8_cache = {}
 
     def forward(self, x: Tensor) -> Tensor:
         c = self.conv
         bias = None if c.bias is None else c.bias.to(self.dtype)
-        x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), bias,
-                     c.stride, c.padding, c.dilation)
+        if self.quant and self.quantizable:
+            # x as it arrives, not cast: odtpu's _QuantConv quantizes the
+            # uncast input (the first conv's float32 image)
+            x = quant.conv_int8(x, c.weight, c.stride, c.padding,
+                                c.dilation, self.dtype, self.int8_cache)
+            if bias is not None:
+                x = x + bias[:, None, None]
+        else:
+            x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), bias,
+                         c.stride, c.padding, c.dilation)
         if self.bn is not None:
             x = batch_norm(self.bn, x, self.dtype)
         return F.relu(x) if self.relu else x
+
+
+def quant_mode(mode) -> str:
+    """``mode`` ("" or None for off, or "int8") as one of
+    :data:`QUANT_MODES`; raises on any other."""
+    mode = str(mode or "")
+    if mode not in QUANT_MODES:
+        raise ValueError("unknown quant mode {!r} (expected 'int8')".format(
+            mode))
+    return mode
+
+
+def set_quant(model: nn.Module, mode: str) -> str:
+    """Set every :class:`Conv` of ``model`` to serve in ``mode`` (see
+    :func:`quant_mode`); returns the mode its first ``Conv`` had, so a
+    caller can put it back."""
+    mode = quant_mode(mode)
+    convs = [m for m in model.modules() if isinstance(m, Conv)]
+    previous = convs[0].quant if convs else ""
+    for m in convs:
+        m.quant = mode
+    return previous
 
 
 class L2Norm(nn.Module):

@@ -52,8 +52,10 @@ class TCB(nn.Module):
 
 
 def _head(cin, width, init, dtype):
+    """An ARM or ODM head conv, kept in the compute dtype under int8
+    serving (``odtpu/models/refinedet.py:98-136``)."""
     return Conv(cin, width, 3, padding=1, relu=False, init=init,
-                dtype=dtype)
+                dtype=dtype, quantizable=False)
 
 
 class RefineDet(nn.Module):

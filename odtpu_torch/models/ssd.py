@@ -51,7 +51,8 @@ def flatten_head(x: Tensor, width: int) -> Tensor:
 
 class MultiBoxHead(nn.Module):
     """Per-source 3x3 loc/conf convs -> [B, P, 4] / [B, P, C] in float32
-    (or wider).
+    (or wider). They stay in the compute dtype under int8 serving
+    (``odtpu/models/ssd.py:71-79``).
 
     The prior order is cell-major, anchor-minor, which is the NHWC
     flatten of each head's output: ``permute(0, 2, 3, 1)`` comes before
@@ -66,11 +67,13 @@ class MultiBoxHead(nn.Module):
             self.add_module(f"loc_{i}", Conv(cin, a * 4, 3, padding=1,
                                              relu=False,
                                              init="xavier_uniform",
-                                             dtype=dtype))
+                                             dtype=dtype,
+                                             quantizable=False))
             self.add_module(f"conf_{i}", Conv(cin, a * num_classes, 3,
                                               padding=1, relu=False,
                                               init="xavier_uniform",
-                                              dtype=dtype))
+                                              dtype=dtype,
+                                              quantizable=False))
 
     def forward(self, sources: Sequence[Tensor]):
         locs, confs = [], []

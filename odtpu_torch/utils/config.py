@@ -53,8 +53,12 @@ def _defaults() -> AttrDict:
 
     # compute dtype for the convs: "bfloat16" (the default) or "float32";
     # parameters stay f32 either way. REMAT (activation checkpointing) is
-    # read only to refuse it: the port does not have it yet
-    C.TPU = AttrDict(COMPUTE_DTYPE="bfloat16", REMAT=False)
+    # read only to refuse it: the port does not have it yet. QUANT is the
+    # serving compute of the eval step: "" (off) or "int8", dynamic
+    # per-image activation and per-channel weight quantization onto the
+    # s8 tensor cores (ops/quant.py); training is unaffected, and any
+    # float32 checkpoint serves int8 as it is
+    C.TPU = AttrDict(COMPUTE_DTYPE="bfloat16", REMAT=False, QUANT="")
 
     C.DATASET = AttrDict()
     C.DATASET.NAME = "VOC0712"

@@ -7,6 +7,7 @@ points the cfg at its tree, a batch of 2 and float32): 2 steps from a
 then scores the last checkpoint. Held exactly: its mAP and the
 per-class detection files it writes equal those of the train run's last
 validation (the same weights, the same eval step, the same images).
+``--quant int8`` scores the same checkpoint in int8 convs.
 """
 
 import json
@@ -22,6 +23,7 @@ import torch
 from odtpu_torch import train
 from odtpu_torch.eval import cli
 from odtpu_torch.infer import random_state_dict
+from odtpu_torch.ops import quant
 from odtpu_torch.utils import logging as tlogging
 from odtpu_torch.utils.config import load_cfg, resolve_cfg_args
 
@@ -154,9 +156,22 @@ def test_command_lines_refuse(argv, match, monkeypatch):
         cli.setup(cli.parse_args(argv + device))
 
 
-def test_eval_refuses_int8_and_train_refuses_visualisation(tmp_path):
-    with pytest.raises(SystemExit, match="quant"):
-        cli.setup(cli.parse_args(["--quant", "int8", "--device", "cpu"]))
+def test_eval_scores_int8_and_train_refuses_visualisation(runs, tmp_path):
+    """``--quant int8`` sets TPU.QUANT and scores the last checkpoint
+    with int8 convs: the same images, an mAP, a detection file a class."""
+    calls = quant.INT_MM_CALLS
+    eargs = cli.parse_args(["--device", "cpu", "--quant", "int8", "--ckpt",
+                            os.path.join(runs["out"], "ckpt"),
+                            "--output_dir", str(tmp_path / "eval8")])
+    ecfg = cli.setup(eargs)
+    assert ecfg.TPU.QUANT == "int8"
+    _point_at(ecfg, str(runs["work"] / "voc"))
+    scored = cli.run(eargs, ecfg)
+    assert quant.INT_MM_CALLS > calls
+    assert scored["weights"].endswith("step 4")
+    assert scored["timing"]["images"] == 4
+    assert all(0.0 <= m <= 1.0 for m in scored["maps"])
+    assert len(list((tmp_path / "eval8").glob("det_*.txt"))) == 20
     args = train.parse_args(["--device", "cpu", "--output_dir",
                              str(tmp_path)])
     cfg, out, log = train.setup(args)

@@ -1,5 +1,6 @@
 """The CUDA greedy-NMS kernel's two entries against their plain twins,
-the serving path's launches (SSD300 and RefineDet320) and train steps
+the int8 conv (``torch._int_mm``) against its float64 oracle, the
+serving path's launches (SSD300 and RefineDet320) and train steps
 (SSD300, and SSD300 over DRN-D-22 with its batch norms) against the
 CPU's, on a card.
 
@@ -15,7 +16,7 @@ import torch
 import chip_smoke
 from odtpu_torch.infer import Detector, random_images, random_state_dict
 from odtpu_torch.models import probe_layer_dims
-from odtpu_torch.ops import detect
+from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import nms_kernel
 from odtpu_torch.ops.priors import prior_factory
@@ -136,6 +137,37 @@ def test_refinedet_served_on_card_equals_plain_detect(priors):
     assert torch.isfinite(out["rows"]).all()
     want = chip_smoke.plain_rows(det.step, *det.step.forward(images))
     assert torch.equal(out["rows"], want)
+
+
+# (B, Cin, H, W, O, kernel, stride, padding, dilation): conv1_1's K = 27,
+# an O that is not a multiple of 8, a batch-1 request's 1x1 maps (M = 1),
+# fc6's dilation 6, RFBNet's (3, 1) and a stride-2 extra
+INT8_CASES = [(4, 3, 30, 30, 64, (3, 3), 1, (1, 1), 1),
+              (2, 32, 12, 12, 12, (3, 3), 1, (1, 1), 1),
+              (1, 256, 1, 1, 128, (1, 1), 1, (0, 0), 1),
+              (1, 128, 3, 3, 256, (3, 3), 1, (0, 0), 1),
+              (2, 64, 19, 19, 128, (3, 3), 1, (6, 6), 6),
+              (2, 64, 10, 10, 32, (3, 1), 1, (1, 0), 1),
+              (2, 64, 10, 10, 64, (3, 3), 2, (1, 1), 1)]
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_conv_int8_on_card_equals_plain(priors, case):
+    """The int8 conv through torch._int_mm on the card equals its float64
+    oracle bit for bit, in bfloat16 from a channels-last input (as the
+    served model gives it), and equals the same conv on the CPU."""
+    b, cin, h, w, o, k, s, pad, d = case
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(b, cin, h, w, generator=g) * 3).to(torch.bfloat16)
+    weight = torch.randn(o, cin, *k, generator=g)
+    args = ((s, s), pad, (d, d), torch.bfloat16)
+    xc = x.cuda().contiguous(memory_format=torch.channels_last)
+    calls = quant.INT_MM_CALLS
+    got = quant.conv_int8(xc, weight.cuda(), *args)
+    assert quant.INT_MM_CALLS == calls + 1
+    want = quant.conv_int8_plain(xc, weight.cuda(), *args)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(got.cpu(), quant.conv_int8(x, weight, *args))
 
 
 def test_train_step_on_card_matches_cpu(priors):

@@ -53,6 +53,9 @@ def test_port_and_chip_smoke_import_without_refused_modules():
         for family in ("drn", "drnssd", "fpn", "fssd", "refinedet",
                        "rfbnet"):
             assert "odtpu_torch.models." + family in names, family
+        # int8 serving and the HTTP server
+        for module in ("odtpu_torch.ops.quant", "odtpu_torch.serve"):
+            assert module in names, module
         import chip_smoke
         leaked = [m for m in sys.modules
                   if any(m == r or m.startswith(r + ".") for r in REFUSED)]

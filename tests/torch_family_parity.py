@@ -30,7 +30,9 @@ from odtpu.utils.config import load_cfg as jload_cfg
 
 from odtpu_torch.eval_step import make_eval_step
 from odtpu_torch.models import model_factory
-from odtpu_torch.utils.checkpoint import from_odtpu_params, load_strict
+from odtpu_torch.utils.checkpoint import (BATCH_STATS_PREFIX,
+                                          from_odtpu_params, load_strict,
+                                          to_odtpu_params)
 from odtpu_torch.utils.config import CFGS, load_cfg
 
 # the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
@@ -60,6 +62,19 @@ def flat_variables(variables):
                 variables.get(col, {})).items():
             out[prefix + "/".join(k)] = np.asarray(v)
     return out
+
+
+def odtpu_variables(state_dict):
+    """The port's ``state_dict`` as ``odtpu``'s flax variables
+    (``to_odtpu_params``; batch stats under ``batch_stats``)."""
+    cols = {"params": {}, "batch_stats": {}}
+    for key, value in to_odtpu_params(state_dict).items():
+        col = "params"
+        if key.startswith(BATCH_STATS_PREFIX):
+            col, key = "batch_stats", key[len(BATCH_STATS_PREFIX):]
+        cols[col][tuple(key.split("/"))] = jnp.asarray(value)
+    return {c: flax.traverse_util.unflatten_dict(d)
+            for c, d in cols.items() if d}
 
 
 def build_pair(name, dtype="float32", batch_norm=False):
