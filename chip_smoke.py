@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
    they must agree bit for bit. Each entry is timed with CUDA events:
    ``ms`` is 200 launches of the C entry from Python on a preallocated
    output, ``device_ms`` the same 200 launches replayed from a CUDA
-   graph (the device alone), ``wrapper_ms`` 200 calls of its wrapper;
-   beside its plain twin and its bound.
+   graph (the device alone), ``wrapper_ms`` 200 calls of its wrapper
+   (``nms_rows`` also ``op_wrapper_ms``, 200 calls of the registered op
+   ``odtpu::nms_rows`` that the serving path calls); beside its plain
+   twin and its bound.
 4. main path: seeded full-width SSD300-VGG16 serves uint8 300x300 batches
    of 32 through ``odtpu_torch.infer.Detector``, in bfloat16 (the serving
    default) and in float32 with TF32 off. ``nms_rows`` must launch once
@@ -144,6 +146,24 @@ Phases, each printing one JSON line:
    directly on the same bytes; one 404 and one 400. p50 and p90 of the
    request's wall time and of ``latency_ms``; one ``nms_rows`` launch
    per request.
+16. export: seeded full-width SSD300 exported by ``odtpu_torch.export``
+   (``torch.export`` through the registered op ``odtpu::nms_rows``) at
+   batch 32 in bfloat16 and in int8 convs, and for any batch in
+   bfloat16, under ``build/``; one fresh subprocess that imports only
+   what ``load_artifact`` needs (no model, config or data module) loads
+   and serves each, 3 warm-up and 10 timed calls: its rows equal the
+   live ``Detector``'s on the same batch exactly (the polymorphic
+   artifact's at B=1 and B=32), one ``nms_rows`` launch a call; ms per
+   batch beside the live path's, export and load seconds, the
+   artifact's bytes.
+17. extras: bf16 SSD300 steps at batch 32 with ``LOSS.REPULSION_WEIGHT =
+   0.5`` on :func:`parity_batch`'s several boxes an image
+   (``loss_repul`` finite and > 0, the repelled priors counted); SSD300
+   and RFBNet300 with ``TPU.REMAT`` off and on, 3 warm-up and 10 timed
+   steps each: ms/step and peak memory; and one float32 step of each
+   from the same state with and without remat (cuDNN deterministic):
+   every update and running statistic within 1e-5 relative L2, the
+   statistics moved once.
 Each tree goes under ``build/`` and is removed after its phase. Then each
 phase's seconds, the ``kernels`` line (the host sampler under ``host``,
 the int8 GEMM under ``library``), and last ``{"ok": true, "device":
@@ -157,6 +177,7 @@ import math
 import os
 import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import threading
@@ -166,8 +187,9 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from odtpu_torch import eval_step, train
+from odtpu_torch import eval_step, export, train
 from odtpu_torch import serve as http_serve
 from odtpu_torch.data import augment, dataset_factory, native
 from odtpu_torch.data.device_aug import draw_params
@@ -178,11 +200,12 @@ from odtpu_torch.eval import cli
 from odtpu_torch.eval.evaluator import EvalVOC, eval_solver_factory
 from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
+from odtpu_torch.layers.losses import repulsion_loss
 from odtpu_torch.models import create_model, probe_layer_dims
-from odtpu_torch.models.common import Conv
+from odtpu_torch.models.common import BatchNorm2d, Conv
 from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
-from odtpu_torch.ops.cuda import build, nms_kernel
+from odtpu_torch.ops.cuda import batch_norm, build, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
@@ -279,22 +302,45 @@ def ptxas_report(log):
     return entries
 
 
+# every CUDA source of the port, built by one nvcc each, all started
+# together
+SOURCES = ("nms_kernel", "batch_norm")
+
+
 def phase_build():
     t0 = time.perf_counter()
-    path, nvcc_s, log = build.build("nms_kernel", verbose=True)
+    builds = {}
+    threads = [threading.Thread(
+        target=lambda n=name: builds.__setitem__(
+            n, build.build(n, verbose=True)))
+        for name in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in SOURCES:
+        if name not in builds:
+            raise AssertionError("the build of {} failed (see the "
+                                 "traceback above)".format(name))
     for name in nms_kernel._C_ARGS:
         nms_kernel._kernel(name)  # load and bind it now
-    report = ptxas_report(log)
-    emit({"phase": "build", "kernel": "nms_kernel",
-          "nvcc_seconds": nvcc_s, "seconds": time.perf_counter() - t0,
-          "library": path.name, "entries": report,
-          "ptxas": [l.strip() for l in log.splitlines() if l.strip()]})
+    batch_norm._kernel()
+    report = {}
+    for name in SOURCES:
+        path, nvcc_s, log = builds[name]
+        report[name] = {"library": path.name, "nvcc_seconds": nvcc_s,
+                        "entries": ptxas_report(log),
+                        "ptxas": [l.strip() for l in log.splitlines()
+                                  if l.strip()]}
+    emit({"phase": "build", "kernels": report,
+          "seconds": time.perf_counter() - t0})
+    entries = report["nms_kernel"]["entries"]
     missing = {"nms_mask", "nms_rows"} - {
-        e for e, r in report.items() if "spill_stores" in r}
-    if missing:
+        e for e, r in entries.items() if "spill_stores" in r}
+    if missing or not report["batch_norm"]["entries"]:
         raise AssertionError("no ptxas report (with spills) for "
-                             "{}".format(sorted(missing)))
-    return report
+                             "{}".format(sorted(missing) or "batch_norm"))
+    return {**entries, "batch_norm": report["batch_norm"]["entries"]}
 
 
 def needed_pairs(boxes, scores, alive):
@@ -322,9 +368,12 @@ def needed_pairs(boxes, scores, alive):
 
 
 def same_bits(a, b):
-    """Equal bit for bit (NaN boxes included, -0.0 apart from 0.0)."""
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """Equal bit for bit, in any dtype (NaN boxes included, -0.0 apart
+    from 0.0)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    view = ints[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
 
 
 def check_kernel(boxes, scores, label):
@@ -482,6 +531,10 @@ def phase_kernel(priors, ptxas):
         lambda: nms_kernel.nms_mask_cuda(boxes, scores, IOU, CONF), 200)
     rows_wrapper_ms = cuda_ms(lambda: nms_kernel.nms_rows_cuda(
         decoded, order, top_scores, cf, IOU, CONF), 200)
+    # the same calls through the registered op odtpu::nms_rows, which
+    # the serving path and an exported program call
+    rows_op_ms = cuda_ms(lambda: torch.ops.odtpu.nms_rows(
+        decoded, order, top_scores, cf, IOU, CONF), 200)
     mask_plain_ms = cuda_ms(
         lambda: nms_kernel.nms_mask_plain(boxes, scores, IOU, CONF), 20)
     rows_plain_ms = cuda_ms(lambda: nms_kernel.nms_rows_plain(
@@ -502,7 +555,7 @@ def phase_kernel(priors, ptxas):
     rows_result = {
         "name": "nms_rows", **common, "ms": rows_ms,
         "device_ms": rows_device_ms, "wrapper_ms": rows_wrapper_ms,
-        "plain_ms": rows_plain_ms,
+        "op_wrapper_ms": rows_op_ms, "plain_ms": rows_plain_ms,
         # the gathered boxes, the order and the scores read, rows written
         **bound(nk * (16 + 8 + 4 + 20), pairs),
         "ptxas": ptxas.get("nms_rows", {})}
@@ -525,6 +578,20 @@ def plain_rows(step, *outputs):
 def reset_counts():
     nms_kernel.LAUNCHES = nms_kernel.MASK_LAUNCHES = 0
     nms_kernel.ROWS_LAUNCHES = 0
+    batch_norm.LAUNCHES = 0
+
+
+def norm_calls(det, images):
+    """Eval-mode batch norms one forward of ``det`` runs on ``images``."""
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: calls.append(m))
+             for m in det.model.modules() if isinstance(m, BatchNorm2d)]
+    try:
+        det.step.forward(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(calls)
 
 
 def counts():
@@ -616,6 +683,7 @@ def serve(label, cfg, warmup, batches, quant_mode=None):
         random_images(BATCH, cfg.MODEL.IMAGE_SIZE, 0)).cuda()
     for _ in range(warmup):
         det(images)
+    norms = norm_calls(det, images)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -627,12 +695,17 @@ def serve(label, cfg, warmup, batches, quant_mode=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = counts()
+    bn_launches = batch_norm.LAUNCHES
     int_mm = quant.INT_MM_CALLS - int_mm
     peak = torch.cuda.max_memory_allocated()
     if launches != {"nms_mask": 0, "nms_rows": batches}:
         raise AssertionError("{}: {} batches made NMS kernel launches {}; "
                              "want one nms_rows launch per batch".format(
                                  label, batches, launches))
+    if bn_launches != batches * norms:
+        raise AssertionError("{}: {} batches of {} eval-mode batch norms "
+                             "made {} bn_eval launches".format(
+                                 label, batches, norms, bn_launches))
     rows, dropped = out["rows"], out["dropped"]
     if rows.shape != (BATCH, det.step.rows_cap, 6) \
             or dropped.shape != (BATCH,):
@@ -648,7 +721,8 @@ def serve(label, cfg, warmup, batches, quant_mode=None):
         "images_per_s": BATCH * batches / seconds,
         "ms_per_batch": 1e3 * seconds / batches,
         "max_memory_allocated": peak, "launches": launches,
-        "int_mm_calls": int_mm, "kept_rows": kept,
+        "bn_eval_launches": bn_launches, "int_mm_calls": int_mm,
+        "kept_rows": kept,
         "dropped": int(dropped.sum())}
 
 
@@ -842,6 +916,8 @@ def serve_family(name, warmup=3, batches=10):
                       needed_pairs(boxes, scores, alive))}
     with torch.inference_mode():
         detect_device_ms = graph_ms(lambda: step.detect(*outputs), 20)
+    norm = check_bn_eval(det, images, name)
+    dispatch = bn_dispatch(det, images, name) if norm else None
 
     gaps = forward_gap(name, weights, images[:2])
     flops = conv_flops(cfg)
@@ -856,9 +932,105 @@ def serve_family(name, warmup=3, batches=10):
               "forward_tflop_per_s": flops * BATCH / forward_ms / 1e9,
               "max_abs_loc": float(outputs[-2].abs().max()),
               "rows_equal_plain": True, "nms_rows": kernel,
-              "f32_vs_cpu": gaps}
+              "bn_eval": norm, "bn_dispatch": dispatch, "f32_vs_cpu": gaps}
     emit(result)
     return result
+
+
+def check_bn_eval(det, images, label, iters=20):
+    """The eval-mode batch-norm kernel against its plain twin on the
+    inputs one forward of ``det`` gives each of its norms (the first of
+    each shape, with that norm's statistics), bit for bit; the largest
+    timed through its wrapper, on the device alone, beside its plain
+    twin, ``F.batch_norm`` (cuDNN's, in its own rounding) and its bound.
+    None for a model without batch norm."""
+    seen = {}
+
+    def grab(bn, args):
+        key = (tuple(args[0].shape), args[0].dtype)
+        if key not in seen:
+            seen[key] = (bn, args[0].detach().clone())
+
+    hooks = [m.register_forward_pre_hook(grab) for m in det.model.modules()
+             if isinstance(m, BatchNorm2d)]
+    try:
+        det.step.forward(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    if not seen:
+        return None
+    cases = []
+    for bn, x in seen.values():
+        wide = batch_norm.wide_dtype(x.dtype)
+        mul = torch.rsqrt(bn.running_var.to(wide) + bn.eps) \
+            * bn.weight.detach().to(wide)
+        args = (x, bn.running_mean.to(wide), mul,
+                bn.bias.detach().to(wide))
+        got = batch_norm.bn_eval_cuda(*args)
+        want = batch_norm.bn_eval_plain(*args)
+        if not same_bits(got, want):
+            raise AssertionError("{}: bn_eval kernel != plain on {} {}: {} "
+                                 "of {} values differ".format(
+                                     label, tuple(x.shape), x.dtype,
+                                     int((got != want).sum()), x.numel()))
+        cases.append((bn, args))
+    bn, args = max(cases, key=lambda c: c[1][0].numel())
+    x = args[0]
+    with torch.no_grad():  # cuDNN's eval-mode norm on the same input
+        library_ms = cuda_ms(lambda: F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            False, 0.0, bn.eps), iters)
+    nbytes = 2 * x.numel() * x.element_size() + 3 * 4 * x.shape[1]
+    ops_ms = 1e3 * 3 * x.numel() / PEAK_F32_FLOP_PER_S
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"shapes": len(cases), "exact": True, "max_abs_err": 0.0,
+            "largest": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "channels_last": bool(x.is_contiguous(
+                memory_format=torch.channels_last)),
+            "ms": cuda_ms(lambda: batch_norm.bn_eval_cuda(*args), iters),
+            "device_ms": graph_ms(lambda: batch_norm.bn_eval_cuda(*args),
+                                  iters),
+            "plain_ms": cuda_ms(lambda: batch_norm.bn_eval_plain(*args),
+                                iters),
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "bytes": nbytes}
+
+
+def bn_dispatch(det, images, label, rounds=2, warmup=3, batches=10):
+    """Host ms per batch of ``det`` with its eval-mode norms as served
+    (the kernel's wrapper called directly, each norm's parameters kept
+    per version), with every norm through the registered op
+    ``odtpu::bn_eval`` instead, and with each norm's parameters made anew
+    at every call: what the direct call and the kept parameters save, in
+    turns (served, op, uncached, uncached, op, served, ...). The rows
+    must not change."""
+    served, kept = batch_norm.bn_eval, BatchNorm2d.eval_params
+
+    def uncached(bn, dtype):
+        bn.__dict__.pop("_eval_cache", None)
+        return kept(bn, dtype)
+
+    variants = {"served": (served, kept),
+                "op": (torch.ops.odtpu.bn_eval, kept),
+                "uncached": (served, uncached)}
+    order = list(variants)
+    want = det(images)["rows"]
+    ms = {v: [] for v in variants}
+    try:
+        for _ in range(rounds // 2):
+            for v in order + order[::-1]:
+                batch_norm.bn_eval, BatchNorm2d.eval_params = variants[v]
+                got, _ = live_ms(det, images, warmup, batches)
+                ms[v].append(got)
+                if not torch.equal(det(images)["rows"], want):
+                    raise AssertionError("{}: the norms {} changed the "
+                                         "rows".format(label, v))
+    finally:
+        batch_norm.bn_eval, BatchNorm2d.eval_params = served, kept
+    return {"order": " ".join(order + order[::-1]), "rounds": rounds // 2,
+            "batches": batches, "ms_per_batch": ms}
 
 
 def phase_families():
@@ -2321,6 +2493,277 @@ def phase_serve(requests=20, conf=CONF):
     return result
 
 
+# what the export phase's subprocess runs: it imports only what
+# ``load_artifact`` needs, loads each artifact, serves ``batches`` calls
+# of each batch size with the NMS counts reset just before them and read
+# just after, saves the last call's rows beside the artifact and prints
+# one JSON line, with every port or JAX module it found imported
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from odtpu_torch.export import load_artifact
+from odtpu_torch.ops.cuda import nms_kernel
+
+spec = json.loads(sys.argv[1])
+images = torch.from_numpy(np.load(spec["images"])).cuda()
+out = {"artifacts": {}}
+for name, path in spec["artifacts"]:
+    t0 = time.perf_counter()
+    call, meta = load_artifact(path, "cuda")
+    res = {"load_s": time.perf_counter() - t0, "batch": meta["batch"],
+           "by_batch": {}}
+    for b in ([meta["batch"]] if meta["batch"] else spec["poly_batches"]):
+        x = images[:b]
+        for _ in range(spec["warmup"]):
+            call(x)
+        torch.cuda.synchronize()
+        nms_kernel.LAUNCHES = nms_kernel.MASK_LAUNCHES = 0
+        nms_kernel.ROWS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(spec["batches"]):
+            rows = call(x)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / spec["batches"]
+        torch.save(rows.cpu(), "{}.{}.pt".format(path, b))
+        res["by_batch"][str(b)] = {
+            "ms_per_batch": ms, "calls": spec["batches"],
+            "launches": {"nms_mask": nms_kernel.MASK_LAUNCHES,
+                         "nms_rows": nms_kernel.ROWS_LAUNCHES}}
+    out["artifacts"][name] = res
+out["imported"] = sorted(m for m in sys.modules if m.startswith(
+    ("odtpu_torch.models", "odtpu_torch.utils", "odtpu_torch.data",
+     "odtpu.", "jax")))
+print(json.dumps(out))
+"""
+
+
+def live_ms(det, images, warmup, batches):
+    """(ms per batch, the last rows) of ``det`` on ``images``, host clock
+    around ``batches`` calls ending in a synchronize."""
+    for _ in range(warmup):
+        det(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        rows = det(images)["rows"]
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / batches, rows
+
+
+def phase_export(warmup=3, batches=10):
+    """Seeded full-width SSD300 exported by ``odtpu_torch.export`` at
+    batch 32 in bfloat16 and in int8 convs, and for any batch in
+    bfloat16; each artifact loaded and served in one fresh subprocess
+    that imports only what ``load_artifact`` needs. Its rows must equal
+    the live ``Detector``'s on the same batch exactly, with one
+    ``nms_rows`` launch a call, the polymorphic artifact's at B=1 and
+    B=32; ms per batch beside the live path's, the artifact's size."""
+    cfg = default_cfg()
+    weights = random_state_dict(cfg, seed=0)
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        npz = os.path.join(work, "ssd300.npz")
+        np.savez(npz, **to_odtpu_params(weights))
+        images = random_images(BATCH, cfg.MODEL.IMAGE_SIZE, 11)
+        np.save(os.path.join(work, "images.npy"), images)
+        arts = {}
+        for name, batch, mode in (("bfloat16", BATCH, ""),
+                                  ("int8", BATCH, "int8"),
+                                  ("bfloat16_any_batch", 0, "")):
+            path = os.path.join(work, name + ".zip")
+            t0 = time.perf_counter()
+            meta = export.export_artifact(path, cfg, ckpt=npz, batch=batch,
+                                          quant=mode, device="cuda")
+            arts[name] = {"path": path, "quant": mode, "batch": batch,
+                          "export_s": time.perf_counter() - t0,
+                          "bytes": os.path.getsize(path),
+                          "num_weights": meta["num_weights"]}
+        spec = {"images": os.path.join(work, "images.npy"),
+                "artifacts": [(n, a["path"]) for n, a in arts.items()],
+                "poly_batches": [1, BATCH], "warmup": warmup,
+                "batches": batches}
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, json.dumps(spec)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError("the artifacts' subprocess failed:\n"
+                                 + child.stderr[-4000:])
+        served = json.loads(child.stdout.strip().splitlines()[-1])
+        if served["imported"]:
+            raise AssertionError("load_artifact imported {}".format(
+                served["imported"]))
+        x = torch.from_numpy(images).cuda()
+        live = {}
+        for mode in ("", "int8"):
+            det = Detector(cfg, weights, device="cuda", quant=mode)
+            for b in ([BATCH] if mode else [1, BATCH]):
+                ms, rows = live_ms(det, x[:b], warmup, batches)
+                live[(mode, b)] = {"ms_per_batch": ms, "rows": rows.cpu()}
+            del det
+        for name, art in arts.items():
+            res = served["artifacts"][name]
+            art.update(load_s=res["load_s"], served=res["by_batch"])
+            for b, one in res["by_batch"].items():
+                want = live[(art["quant"], int(b))]
+                got = torch.load("{}.{}.pt".format(art["path"], b))
+                one["live_ms_per_batch"] = want["ms_per_batch"]
+                one["rows_equal_live"] = torch.equal(got, want["rows"])
+                one["kept_rows"] = int((got[..., 0] > 0).sum())
+                if not one["rows_equal_live"]:
+                    raise AssertionError(
+                        "{} artifact at B={}: {} of {} row values differ "
+                        "from the live Detector's".format(
+                            name, b, int((got != want["rows"]).sum()),
+                            got.numel()))
+                if one["launches"] != {"nms_mask": 0,
+                                       "nms_rows": one["calls"]}:
+                    raise AssertionError(
+                        "{} artifact at B={}: {} calls made NMS launches "
+                        "{}".format(name, b, one["calls"], one["launches"]))
+            del art["path"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"phase": "export", "cfg": "ssd_vgg16_voc", "warmup": warmup,
+              "batches": batches, "artifacts": arts,
+              "subprocess_s": child_s, "nvidia_smi": power_limit()}
+    emit(result)
+    return result
+
+
+def timed_steps(name, remat=False, rep_w=0.0, batch_fn=None, warmup=3,
+                steps=10):
+    """bf16 train steps of ``BATCH`` images of ``name`` from
+    ``create_train_state``'s init (clipped at 10, as ``family_train``),
+    with ``TPU.REMAT`` and ``LOSS.REPULSION_WEIGHT`` as given: ms/step by
+    CUDA events, peak memory, every loss finite, no NMS launch. With the
+    repulsion loss the steps start from ``random_state_dict``'s weights:
+    the loss decodes the predicted boxes, and at the init's raw pixel
+    scale |loc| reaches ~1000, where decode's exp overflows (in ``odtpu``
+    too) and the gradient turns NaN."""
+    cfg = train_cfg("bfloat16", name)
+    cfg.TRAIN.OPTIMIZER.CLIP_GRAD_NORM = 10.0
+    cfg.TPU.REMAT = remat
+    cfg.LOSS.REPULSION_WEIGHT = rep_w
+    state, priors = create_train_state(cfg, "cuda", seed=0)
+    if rep_w > 0:
+        state.model.load_state_dict(random_state_dict(cfg, seed=0))
+    step = make_train_step(priors, cfg)
+    images, boxes, labels = (batch_fn or train_batch)(
+        BATCH, size=cfg.MODEL.IMAGE_SIZE)
+    for _ in range(warmup):
+        step(state, images, boxes, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = [step(state, images, boxes, labels) for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    launches = counts()
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if launches != {"nms_mask": 0, "nms_rows": 0} or not all(
+            math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError("{} remat={} rep={}: launches {} losses "
+                             "{}".format(name, remat, rep_w, launches,
+                                         losses))
+    return state, step, (images, boxes, labels), {
+        "ms_per_step": start.elapsed_time(end) / steps,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "steps": steps, "losses": losses}
+
+
+def remat_parity(name, batch=4, tol=1e-5):
+    """One float32 step (TF32 off, cuDNN deterministic) of ``name`` from
+    the same seeded state and batch with ``TPU.REMAT`` and without it:
+    each update (the momentum after the step) and each running statistic
+    within ``tol`` relative L2 of the other's, the statistics moved once
+    from their init."""
+    cfg = train_cfg("float32", name)
+    images, boxes, labels = (t.cuda() for t in parity_batch(batch, cfg=cfg))
+    params = draw_params(batch, torch.Generator().manual_seed(5))
+    params = {k: v.cuda() for k, v in params.items()}
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        for remat in (False, True):
+            cfg.TPU.REMAT = remat
+            state, priors = create_train_state(cfg, "cuda", seed=0)
+            init = running_stats(state.model)
+            step = make_train_step(priors, cfg)
+            m = step(state, images, boxes, labels, aug_params=params)
+            opt = state.optimizer.state
+            out[remat] = {
+                "loss": float(m["loss"]), "init": init,
+                "stats": running_stats(state.model),
+                "momentum": {k: opt[p]["momentum_buffer"].double()
+                             for k, p in state.model.named_parameters()}}
+            del state, step
+    plain, remat = out[False], out[True]
+    updates = {k: rel_l2(v, plain["momentum"][k])
+               for k, v in remat["momentum"].items()}
+    stats = {k: rel_l2(v, plain["stats"][k])
+             for k, v in remat["stats"].items()}
+    moved = sum(not torch.equal(v, remat["init"][k])
+                for k, v in remat["stats"].items())
+    worst_u = max(updates.values())
+    worst_s = max(stats.values(), default=0.0)
+    result = {"cfg": name, "batch": batch, "dtype": "float32",
+              "loss": plain["loss"], "loss_remat": remat["loss"],
+              "tensors": len(updates), "update_max_rel_l2": worst_u,
+              "running_stats": len(stats), "stats_max_rel_l2": worst_s,
+              "stats_moved": moved}
+    if worst_u > tol or worst_s > tol or moved != len(stats):
+        raise AssertionError("{}: remat against plain step: {}".format(
+            name, result))
+    return result
+
+
+def phase_extras():
+    """The training extras at full width, bf16, batch 32: SSD300 with
+    ``REPULSION_WEIGHT = 0.5`` on :func:`parity_batch`'s several boxes an
+    image (``loss_repul`` finite and > 0, the repelled priors counted),
+    and SSD300 and RFBNet300 with ``TPU.REMAT`` off and on (ms/step,
+    peak memory); then :func:`remat_parity` for both."""
+    state, step, (images, boxes, labels), rep = timed_steps(
+        "ssd_vgg16_voc", rep_w=0.5, steps=5, batch_fn=lambda b, size: tuple(
+            t.cuda() for t in parity_batch(b)))
+    if min(rep["losses"]["loss_repul"]) <= 0:
+        raise AssertionError("loss_repul {}".format(
+            rep["losses"]["loss_repul"]))
+    with torch.no_grad():
+        loc = step.forward(state, step.augment(images, state.step))[0]
+        _, repelled = repulsion_loss(loc, step.priors, boxes, labels,
+                                     step.variances)
+    rep["repelled_priors"] = int(repelled)
+    rep["gt_boxes"] = int((labels >= 0).sum())
+    del state, step
+    remat = {}
+    for name in ("ssd_vgg16_voc", "rfbnet300_vgg16_voc"):
+        remat[name] = {}
+        for on in (False, True):
+            # one warm-up step where this net's shapes already ran: cuDNN
+            # has picked its algorithms and the allocator holds the blocks
+            warm = name == "ssd_vgg16_voc" or on
+            state, _, _, res = timed_steps(name, remat=on,
+                                           warmup=1 if warm else 3)
+            del res["losses"], state
+            remat[name]["on" if on else "off"] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+        remat[name]["parity"] = remat_parity(name)
+    result = {"phase": "extras", "batch": BATCH, "repulsion": rep,
+              "remat": remat, "nvidia_smi": power_limit()}
+    emit(result)
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -2351,6 +2794,8 @@ def main():
     coco = timed("coco", phase_coco)
     int8, split = timed("int8", phase_int8)
     served = timed("serve", phase_serve)
+    exported = timed("export", phase_export)
+    timed("extras", phase_extras)
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -2376,7 +2821,10 @@ def main():
             "coco_eval": coco["launches"][name],
             "int8": {r["cfg"]: r["int8"]["launches"][name] for r in int8},
             "serve": {mode: served[mode]["launches"][name]
-                      for mode in ("bfloat16", "int8")}}
+                      for mode in ("bfloat16", "int8")},
+            "export": {"{} B={}".format(art, b): one["launches"][name]
+                       for art, a in exported["artifacts"].items()
+                       for b, one in a["served"].items()}}
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
     # the host sampler is C++ for the host, not a kernel of the card: it
@@ -2419,7 +2867,29 @@ def main():
                "note": "SSD300's {} quantized convs at batch 32, summed; "
                        "library_ms is the call itself".format(
                            split["convs"])}
-    emit({"kernels": [mask, rows], "host": [host], "library": [library]})
+    # the eval-mode batch-norm kernel: no TPU kernel's port (flax's norm
+    # is fused by XLA), on the serving path of every batch-normed family;
+    # timed on the largest norm input the families gave it
+    norm_results = [f for f in families if f["bn_eval"]]
+    largest = max(norm_results, key=lambda f: f["bn_eval"]["bytes"])
+    norm = {"name": "bn_eval", "route": "cuda",
+            "source": "odtpu_torch/csrc/batch_norm.cu",
+            "replaces": "odtpu/models/common.py:177 flax nn.BatchNorm in "
+                        "eval mode (fused by XLA; no Pallas kernel)",
+            "launches": sum(f["bn_eval_launches"] for f in families),
+            "path": "families, {} batches a configuration".format(
+                families[0]["batches"]),
+            "launches_by_path": {
+                "families": {f["cfg"]: f["bn_eval_launches"]
+                             for f in families},
+                "int8": {r["cfg"]: r["int8"]["bn_eval_launches"]
+                         for r in int8},
+                "serving_ssd300": bf16["bn_eval_launches"]},
+            "timed_on": "{} {}".format(largest["cfg"],
+                                       largest["bn_eval"]["largest"]),
+            **largest["bn_eval"]}
+    emit({"kernels": [mask, rows, norm], "host": [host],
+          "library": [library]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     sys.stdout.flush()

@@ -2,10 +2,12 @@
 
 Counterpart of ``odtpu/layers/losses.py`` ``smooth_l1``,
 ``multibox_targets``, ``multibox_loss``, ``mined_multibox``,
-``MultiBoxLoss``, ``RefineDetLossOutput`` and ``refinedet_loss``
-(``focal_loss`` and ``repulsion_loss`` wait for their slice). The sums
-are unnormalized and come with the positive count, so the train step
-divides by the whole batch's N.
+``MultiBoxLoss``, ``RefineDetLossOutput``, ``refinedet_loss``,
+``focal_loss`` (which has no caller, in ``odtpu`` either) and the
+repulsion loss (``_smooth_ln``, ``repulsion_loss``: RepGT, with the
+paper's SmoothLn where the reference doubles a term). The sums are
+unnormalized and come with their count, so the train step divides by
+the whole batch's N.
 
 Hard negative mining keeps ``odtpu``'s rank rule: a stable descending
 sort of the negatives' CE (positives and ignored priors count 0), and a
@@ -24,7 +26,8 @@ from torch import Tensor
 
 from ..models.common import float32_or_wider
 from ..ops.detect import refine_anchors
-from ..ops.matching import match_batch
+from ..ops.boxes import decode, iog
+from ..ops.matching import match_batch, match_second_best
 
 
 class MultiBoxLossOutput(NamedTuple):
@@ -174,3 +177,43 @@ def refinedet_loss(arm_loc: Tensor, arm_conf: Tensor, odm_loc: Tensor,
     odm = mined_multibox(odm_loc, odm_conf, loc_t, conf_t, neg_pos_ratio,
                          ignore=ignore)
     return RefineDetLossOutput(arm, odm)
+
+
+def focal_loss(conf_pred: Tensor, conf_t: Tensor, gamma: float = 2.0,
+               alpha: float = 0.25) -> Tensor:
+    """Focal loss over every prior, unnormalized: conf_pred [B, P, C]
+    logits, conf_t [B, P] (0 = background). The target's log-probability
+    is gathered (``odtpu`` reduces a one-hot product: the same value)."""
+    logp = torch.log_softmax(float32_or_wider(conf_pred), dim=-1)
+    logpt = torch.gather(logp, -1, conf_t[..., None].long())[..., 0]
+    pt = torch.exp(logpt)
+    at = torch.where(conf_t > 0, alpha, 1.0 - alpha)
+    return torch.sum(-at * (1.0 - pt) ** gamma * logpt)
+
+
+def _smooth_ln(x: Tensor, sigma: float = 0.5) -> Tensor:
+    """SmoothLn (Repulsion Loss, CVPR'18 eq. 4): -ln(1 - x) for x <=
+    sigma, else (x - sigma) / (1 - sigma) - ln(1 - sigma); x clipped to
+    [0, 1 - 1e-6]."""
+    x = torch.clamp(x, 0.0, 1.0 - 1e-6)
+    lo = -torch.log1p(-x)
+    hi = (x - sigma) / (1.0 - sigma) - torch.log1p(x.new_tensor(-sigma))
+    return torch.where(x <= sigma, lo, hi)
+
+
+def repulsion_loss(loc_pred: Tensor, priors: Tensor, gt_boxes: Tensor,
+                   gt_labels: Tensor, variances,
+                   sigma: float = 0.5) -> tuple[Tensor, Tensor]:
+    """RepGT: each positive prediction (matched at IoU 0.5) that overlaps
+    a second GT is pushed off it by ``_smooth_ln`` of its IoG with that
+    GT (:func:`match_second_best`). loc_pred [B, P, 4] -> (sum, count of
+    repelled priors), for the train step's global average."""
+    loc = float32_or_wider(loc_pred)
+    _, conf_t, best_idx = match_batch(gt_boxes, gt_labels, priors,
+                                      variances, 0.5)
+    second, has_second = match_second_best(loc, gt_boxes, gt_labels,
+                                           priors, variances, best_idx)
+    overlap = iog(second, decode(loc, priors, variances))  # [B, P]
+    pos = (conf_t > 0) & has_second
+    pen = _smooth_ln(overlap, sigma)
+    return torch.where(pos, pen, 0.0).sum(), pos.sum()

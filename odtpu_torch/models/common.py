@@ -16,11 +16,14 @@ compute dtype.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ..ops import quant
+from ..ops.cuda import batch_norm as bn_ops
 
 # the serving modes of ``TPU.QUANT``: off, or dynamic int8
 QUANT_MODES = ("", "int8")
@@ -32,22 +35,43 @@ QUANT_MODES = ("", "int8")
 INITS = ("he_normal", "lecun_normal", "xavier_uniform", "zeros")
 
 
+# True while a checkpointed forward is recomputed for its backward
+# (``TPU.REMAT``): train-mode batch norm then leaves the running
+# statistics as the first forward left them
+_RECOMPUTING = False
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Mark a forward as the recompute of one already run: the batch norms
+    normalise with the batch's statistics as before (the same input
+    gives the same statistics) and do not move their running ones again,
+    as flax's functional ``jax.checkpoint`` never does."""
+    global _RECOMPUTING
+    outer, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = outer
+
+
 def float32_or_wider(x: Tensor) -> Tensor:
     """``x`` in float32, or as it is when wider (a float64 step)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
+def batch_norm(bn: BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
     """``bn`` applied in float32 (or wider), cast back to ``dtype``.
 
-    In eval mode it normalises with the running statistics. In train mode
-    it follows flax's ``nn.BatchNorm(use_running_average=False)``: the
-    batch's mean and *biased* variance over (N, H, W) normalise, as
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running
-    statistics move by ``running = (1 - momentum) * running + momentum *
-    batch_stat`` with that biased variance (``nn.BatchNorm2d`` would take
-    the unbiased one, n / (n - 1) larger, and it refuses one value a
-    channel, where this gives the bias).
+    In eval mode it normalises with the running statistics in flax's
+    order, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    (:class:`BatchNorm2d`'s forward). In train mode it follows flax's
+    ``nn.BatchNorm(use_running_average=False)``: the batch's mean and
+    *biased* variance over (N, H, W) normalise in the same order, and
+    the running statistics move by ``running = (1 - momentum) * running
+    + momentum * batch_stat`` with that biased variance
+    (``nn.BatchNorm2d`` would take the unbiased one, n / (n - 1) larger,
+    and it refuses one value a channel, where this gives the bias).
 
     The fused batch norm normalises and hands back the batch's mean and
     unbiased variance, from which the biased one follows. For one value a
@@ -55,9 +79,9 @@ def batch_norm(bn: nn.BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
     autograd through them, as flax's are: the variance is 0 and the
     output the bias.
     """
-    x = float32_or_wider(x)
     if not bn.training:
         return bn(x).to(dtype)
+    x = float32_or_wider(x)
     weight, bias = bn.weight.to(x.dtype), bn.bias.to(x.dtype)
     n = x.numel() // x.shape[1]
     if n > 1:
@@ -73,12 +97,61 @@ def batch_norm(bn: nn.BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
         var = xc.square().mean((0, 2, 3), keepdim=True)
         mul = torch.rsqrt(var + bn.eps) * weight[:, None, None]
         y = torch.addcmul(bias[:, None, None], xc, mul)
+    if _RECOMPUTING:
+        return y.to(dtype)
     with torch.no_grad():
         for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
             running.mul_(1.0 - bn.momentum).add_(
                 stat.detach().flatten().to(running.dtype),
                 alpha=bn.momentum)
     return y.to(dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose eval-mode forward is flax's
+    ``nn.BatchNorm(use_running_average=True)`` (``odtpu`` common.py:
+    177-180): ``mul = rsqrt(var + eps) * scale`` in float32 (float64 for
+    a float64 ``x``), then ``(x - mean) * mul + bias`` with the product
+    and the sum rounded apart (``nn.BatchNorm2d``'s own arithmetic rounds
+    otherwise, and int8 serving spreads a last-bit difference), by
+    ``ops.cuda.batch_norm.bn_eval``: one kernel pass on a card. The
+    result keeps ``x``'s dtype and layout. The same buffers and names as
+    ``nn.BatchNorm2d``, so checkpoints and hooks see no difference. Train
+    mode goes through :func:`batch_norm`, never this forward."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.training:
+            raise RuntimeError("train-mode batch norm runs through "
+                               "models.common.batch_norm")
+        return bn_ops.bn_eval(x, *self.eval_params(x.dtype))
+
+    def eval_params(self, dtype: torch.dtype) -> tuple:
+        """(mean, mul, bias) in the wide dtype of an activation of
+        ``dtype``. Where no gradient is taken they are made once per
+        version of the statistics and the affine parameters (an
+        optimizer step or ``load_state_dict`` makes them anew), which
+        spares the serving path three launches a norm."""
+        wide = bn_ops.wide_dtype(dtype)
+        tensors = (self.running_mean, self.running_var, self.weight,
+                   self.bias)
+        cache = not (torch.is_grad_enabled()
+                     or torch.compiler.is_exporting()
+                     or any(t.is_inference() for t in tensors))
+        if cache:
+            key = (wide,) + tuple((t.data_ptr(), t._version)
+                                  for t in tensors)
+            hit = self.__dict__.get("_eval_cache")
+            if hit is not None and hit[0] == key:
+                return hit[1]
+        mul = torch.rsqrt(self.running_var.to(wide) + self.eps) \
+            * self.weight.to(wide)
+        params = (self.running_mean.to(wide).contiguous(), mul.contiguous(),
+                  self.bias.to(wide).contiguous())
+        if cache:
+            # the key's storages stay alive in the module, so an equal
+            # address is the same storage
+            self.__dict__["_eval_cache"] = (key, params)
+        return params
 
 
 class Conv(nn.Module):
@@ -106,7 +179,7 @@ class Conv(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
                               padding=padding, dilation=dilation,
                               bias=not batch_norm)
-        self.bn = (nn.BatchNorm2d(out_ch, eps=1e-5, momentum=bn_momentum)
+        self.bn = (BatchNorm2d(out_ch, eps=1e-5, momentum=bn_momentum)
                    if batch_norm else None)
         self.relu = relu
         self.init = init

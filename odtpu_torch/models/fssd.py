@@ -17,7 +17,7 @@ import torch
 from torch import Tensor, nn
 
 from ..ops.detect import ssd_decode
-from .common import Conv, batch_norm
+from .common import BatchNorm2d, Conv, batch_norm
 from .fpn import upsample_bilinear
 from .ssd import MultiBoxHead, outputs
 
@@ -45,7 +45,7 @@ class FSSD(nn.Module):
                                  relu=False, dtype=dtype)
         for i, cin in enumerate(list(backbone.out_channels) + [2 * d]):
             self.add_module(f"transform_{i}", Conv(cin, d, 1, dtype=dtype))
-        self.fusion_bn = nn.BatchNorm2d(3 * d, eps=1e-5, momentum=0.1)
+        self.fusion_bn = BatchNorm2d(3 * d, eps=1e-5, momentum=0.1)
         cin, channels = 3 * d, []
         for i, (f, s, p) in enumerate(FSSD300_PYRAMID):
             self.add_module(f"pyramid_{i}", Conv(cin, f, 3, stride=s,

@@ -16,6 +16,16 @@ from torch import nn
 
 from .common import Conv, max_pool_ceil
 
+# the reference's ``nn.Sequential`` index of each conv -> its name here
+# (``odtpu/models/vgg.py:26``), for ``tools.convert_torch_weights``
+TORCH_INDEX_TO_NAME = {
+    0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
+    10: "conv3_1", 12: "conv3_2", 14: "conv3_3",
+    17: "conv4_1", 19: "conv4_2", 21: "conv4_3",
+    24: "conv5_1", 26: "conv5_2", 28: "conv5_3",
+    31: "conv6", 33: "conv7",
+}
+
 # (name, in, out) of the 3x3/p1 convs; "pool" / "pool_ceil" between blocks
 _LAYERS = [
     ("conv1_1", 3, 64), ("conv1_2", 64, 64), "pool",

@@ -1,7 +1,7 @@
 """Box math: point form, center-size, overlaps, encode and decode.
 
-Counterpart of ``odtpu/ops/boxes.py`` (all but ``iog``, which waits for
-the repulsion loss). Every function broadcasts over leading batch dims.
+Counterpart of ``odtpu/ops/boxes.py``. Every function broadcasts over
+leading batch dims.
 Conventions:
 - point form:  [x_min, y_min, x_max, y_max], normalized to [0, 1];
 - center-size: [cx, cy, w, h];
@@ -49,6 +49,18 @@ def jaccard(box_a: Tensor, box_b: Tensor) -> Tensor:
     area_b = (box_b[..., 2] - box_b[..., 0]) * (box_b[..., 3] - box_b[..., 1])
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union
+
+
+def iog(box_a: Tensor, box_b: Tensor) -> Tensor:
+    """Elementwise intersection over ground truth, area(A ∩ B) / area(A):
+    [..., N, 4] x [..., N, 4] -> [..., N] (the repulsion loss's term;
+    ``odtpu`` boxes.py:70)."""
+    min_xy = torch.maximum(box_a[..., :2], box_b[..., :2])
+    max_xy = torch.minimum(box_a[..., 2:], box_b[..., 2:])
+    wh = torch.clamp(max_xy - min_xy, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    g = (box_a[..., 2] - box_a[..., 0]) * (box_a[..., 3] - box_a[..., 1])
+    return inter / g
 
 
 def encode(matched: Tensor, priors: Tensor, variances) -> Tensor:

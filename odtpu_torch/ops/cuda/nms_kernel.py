@@ -10,7 +10,9 @@ plain torch with the same division-free test, and :func:`per_class_nms`
 mirrors ``per_class_nms_pallas``.
 
 A CUDA tensor goes to the kernel and a CPU tensor to the plain version.
-There is no fallback: a CUDA input the kernel cannot take raises.
+There is no fallback: a CUDA input the kernel cannot take raises. The
+serving path's entry is also the registered op ``odtpu::nms_rows``
+(:func:`nms_rows`), which ``torch.export`` traces as one node.
 
 The division-free test ``inter > thresh * union & union > 0`` rounds
 once (a multiply) where ``odtpu.ops.nms`` rounds once in a divide, so a
@@ -227,25 +229,41 @@ def nms_rows_plain(decoded: Tensor, order: Tensor, top_scores: Tensor,
     return torch.cat([(top_scores * alive)[..., None], boxes], dim=-1)
 
 
-def nms_rows(decoded: Tensor, order: Tensor, top_scores: Tensor, cf: int,
-             iou_thresh: float, score_thresh: float = 0.0) -> Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if decoded.is_cuda:
-        return nms_rows_cuda(decoded, order, top_scores, cf, iou_thresh,
-                             score_thresh)
-    if decoded.device.type != "cpu":
-        raise ValueError("no NMS for tensors on {}".format(decoded.device))
+@torch.library.custom_op("odtpu::nms_rows", mutates_args=(),
+                         device_types="cpu")
+def _nms_rows_op(decoded: Tensor, order: Tensor, top_scores: Tensor,
+                 cf: int, iou_thresh: float, score_thresh: float) -> Tensor:
     return nms_rows_plain(decoded, order, top_scores, cf, iou_thresh,
                           score_thresh)
+
+
+_nms_rows_op.register_kernel("cuda")(nms_rows_cuda)
+
+
+@_nms_rows_op.register_fake
+def _(decoded, order, top_scores, cf, iou_thresh, score_thresh):
+    return order.new_empty((*order.shape, 5), dtype=torch.float32)
+
+
+def nms_rows(decoded: Tensor, order: Tensor, top_scores: Tensor, cf: int,
+             iou_thresh: float, score_thresh: float = 0.0) -> Tensor:
+    """The registered op ``odtpu::nms_rows``: :func:`nms_rows_cuda` for
+    CUDA tensors, :func:`nms_rows_plain` for CPU tensors, and a
+    ``[B*cf, K, 5]`` shape under ``torch.export``'s tracing, so that the
+    live path and an exported program run the same op. Any other device
+    raises."""
+    return torch.ops.odtpu.nms_rows(decoded, order, top_scores, int(cf),
+                                    float(iou_thresh), float(score_thresh))
 
 
 def _top_order(conf_fg: Tensor, k: int) -> tuple[Tensor, Tensor]:
     """conf_fg [B, P, C-1] -> each (image, class) set's k best scores and
     their indices, [B*(C-1), k], score-sorted (row slices, not copies)."""
     B, P, Cf = conf_fg.shape
-    # contiguous: a sort keeps its input's strides, and at B = 1 the
-    # reshape is a transposed view
-    scores = conf_fg.transpose(1, 2).reshape(B * Cf, P).contiguous()
+    # contiguous: a sort keeps its input's strides, and at B = 1 a
+    # reshape would be a transposed view. One copy at every B, and an
+    # exported graph keeps it whatever B it was traced at
+    scores = conf_fg.transpose(1, 2).contiguous().view(B * Cf, P)
     return top_k_exact(scores, k)
 
 

@@ -1,7 +1,7 @@
 """Ground truth to prior matching, batched.
 
-Counterpart of ``odtpu/ops/matching.py`` ``match`` and ``match_batch``
-(``match_second_best`` waits for the repulsion loss). Ground truth is
+Counterpart of ``odtpu/ops/matching.py`` ``match``, ``match_batch`` and
+``match_second_best`` (the repulsion loss's target). Ground truth is
 padded to ``[B, G]`` with label < 0 marking padding; padded rows never
 match. The steps, as in ``odtpu``:
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from .boxes import encode, jaccard, point_form
+from .boxes import decode, encode, jaccard, point_form
 
 
 @torch.no_grad()
@@ -75,3 +75,32 @@ def match(truths: Tensor, labels: Tensor, priors: Tensor, variances,
     loc, conf, idx = match_batch(truths[None], labels[None], priors,
                                  variances, threshold)
     return loc[0], conf[0], idx[0]
+
+
+@torch.no_grad()
+def match_second_best(pred_loc: Tensor, truths: Tensor, labels: Tensor,
+                      priors: Tensor, variances,
+                      best_truth_idx: Tensor) -> tuple[Tensor, Tensor]:
+    """Each prior's second-best GT, measured on its *decoded prediction*
+    (``odtpu`` matching.py:107; the reference's ``match_rep``): the IoU of
+    every valid GT with ``decode(pred_loc)``, the prior's assigned GT
+    (``best_truth_idx``, from :func:`match_batch`) masked to -1, then the
+    first GT of the largest IoU.
+
+    Shapes: pred_loc [..., P, 4], truths [..., G, 4], labels [..., G],
+    best_truth_idx [..., P] (one image, or a batch). Returns (point-form
+    second-best GT [..., P, 4], gathered exactly; bool [..., P], whether
+    a distinct GT overlaps the prediction at all: with one valid GT every
+    other column is -1 and the index would name the assigned GT itself).
+    """
+    decoded = decode(pred_loc, priors, variances)
+    overlaps = jaccard(truths, decoded)  # [..., G, P]
+    overlaps = torch.where((labels >= 0)[..., None], overlaps, -1.0)
+    assigned = torch.nn.functional.one_hot(
+        best_truth_idx, truths.shape[-2]).transpose(-1, -2).bool()
+    overlaps = torch.where(assigned, -1.0, overlaps)
+    second_overlap = torch.amax(overlaps, dim=-2)
+    second_idx = torch.argmax(overlaps, dim=-2)
+    second = torch.gather(truths, -2, second_idx[..., None].expand(
+        *second_idx.shape, 4))
+    return second, second_overlap > 0.0

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 # torch._int_mm calls made by conv_int8 (the card's int8 GEMM launches)
 INT_MM_CALLS = 0
@@ -76,8 +77,10 @@ def weight_operand(weight: Tensor, cache: dict | None = None):
     version counter changes (an optimizer step, ``load_state_dict``), so
     the train loop's validation never serves stale weights. The cache
     holds the storage alive, so an equal address is the same storage.
-    An inference tensor has no version counter and is not cached."""
-    if weight.is_inference():
+    An inference tensor has no version counter and is not cached, nor is
+    a weight that ``torch.export`` traces (it has no storage): the
+    exported graph quantizes its float32 weights with these same ops."""
+    if torch.compiler.is_exporting() or weight.is_inference():
         cache = None
     key = None if cache is None else (
         weight.data_ptr(), weight._version, weight.device, weight.shape)
@@ -132,11 +135,11 @@ def tap_matrix(x_q: Tensor, kernel, stride, padding, dilation) -> Tensor:
 def int_mm(a: Tensor, b: Tensor) -> Tensor:
     """int8 [M, K] x int8 [K, N] -> int32 [M, N] by ``torch._int_mm``,
     M zero-padded past 16 where it is not (a batch-1 request's 1x1
-    maps)."""
+    maps), or where a batch-polymorphic export cannot tell."""
     global INT_MM_CALLS
     m = a.shape[0]
-    if m <= _MIN_ROWS:
-        a = F.pad(a, (0, 0, 0, _MIN_ROWS + 1 - m))
+    if not statically_known_true(m > _MIN_ROWS):
+        a = F.pad(a, (0, 0, 0, _MIN_ROWS + 1))
     y = torch._int_mm(a, b)
     INT_MM_CALLS += 1
     return y[:m]
@@ -155,7 +158,6 @@ def rescale(y: Tensor, s_x: Tensor, s_w: Tensor,
     return torch.mul(y, scale, out=out)
 
 
-@torch.no_grad()
 def conv_int8(x: Tensor, weight: Tensor, stride=(1, 1), padding=(0, 0),
               dilation=(1, 1), out_dtype: torch.dtype = torch.float32,
               cache: dict | None = None) -> Tensor:
@@ -165,6 +167,12 @@ def conv_int8(x: Tensor, weight: Tensor, stride=(1, 1), padding=(0, 0),
     The result is NCHW and channels-last, as the GEMM writes it: no copy
     between the GEMM and the rescale. ``cache``: see
     :func:`weight_operand`."""
+    if torch.is_grad_enabled():
+        # only here: each grad-mode switch is a node that torch.export
+        # then splits the int8 graph at
+        with torch.no_grad():
+            return conv_int8(x, weight, stride, padding, dilation,
+                             out_dtype, cache)
     x_q, s_x = quantize_act_int8(x)
     b, s_w = weight_operand(weight, cache)
     o, _, kh, kw = weight.shape

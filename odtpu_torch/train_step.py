@@ -27,22 +27,32 @@ device:
   seeded by (17, step), as ``odtpu`` folds the step into ``PRNGKey(17)``,
   so a resumed run draws what an unbroken run draws.
 
-Training covers every family of the zoo. The repulsion loss and
-activation checkpointing (``TPU.REMAT``) are not ported yet; the state
-and the step refuse them.
+- ``LOSS.REPULSION_WEIGHT`` > 0 adds ``w * rep_sum / max(rep_n, 1)``
+  (RepGT, ``layers.losses.repulsion_loss``) outside RefineDet, reported
+  as ``loss_repul``, as ``odtpu/parallel/train.py:189-196`` does;
+- ``TPU.REMAT`` checkpoints the whole model forward
+  (``torch.utils.checkpoint``, non-reentrant), as ``odtpu`` wraps its
+  apply in ``jax.checkpoint``: the backward recomputes it. The running
+  statistics move once, in the first forward
+  (``models.common.recomputing``).
+
+Training covers every family of the zoo.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import Tensor, nn
+from torch.utils.checkpoint import checkpoint
 
 from .data.device_aug import draw_params, preprocess_train_batch
-from .layers.losses import multibox_loss, refinedet_loss
+from .layers.losses import multibox_loss, refinedet_loss, repulsion_loss
 from .models import compute_dtype, model_factory
+from .models.common import recomputing
 
 
 def lr_schedule(cfg):
@@ -109,24 +119,11 @@ class TrainState:
 
 def create_train_state(cfg, device="cuda", seed: int = 0):
     """(TrainState with seeded weights on ``device``, priors [P, 4])."""
-    _refuse_unported(cfg)
     model, priors, _ = model_factory("train", cfg, device, seed)
     model.train()
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return TrainState(model, make_optimizer(model.parameters(), cfg)), priors
-
-
-def _refuse_unported(cfg) -> None:
-    """The repulsion loss and remat are ROADMAP Queue 1's extras."""
-    for what, on in (
-            ("the repulsion loss (LOSS.REPULSION_WEIGHT > 0)",
-             float(cfg.LOSS.REPULSION_WEIGHT) > 0),
-            ("activation checkpointing (TPU.REMAT)", bool(cfg.TPU.REMAT))):
-        if on:
-            raise NotImplementedError(
-                "{} is not ported to odtpu_torch yet (ROADMAP Queue 1, "
-                "the extras)".format(what))
 
 
 class TrainStep:
@@ -145,13 +142,14 @@ class TrainStep:
     """
 
     def __init__(self, priors: Tensor, cfg):
-        _refuse_unported(cfg)
         self.priors = priors
         self.device = priors.device
         self.variances = tuple(float(v) for v in cfg.MODEL.VARIANCE)
         self.overlap = float(cfg.LOSS.OVERLAP_THRESH)
         self.negpos = int(cfg.LOSS.NEG_POS_RATIO)
         self.loc_w = float(cfg.LOSS.LOC_WEIGHT)
+        self.rep_w = float(cfg.LOSS.REPULSION_WEIGHT)
+        self.remat = bool(cfg.TPU.REMAT)
         self.refinedet = cfg.MODEL.SSD_TYPE == "RefineDet"
         self.odm_warm = int(cfg.LOSS.ODM_MATCH_WARM_ITERS)
         self.device_photo = bool(cfg.DATASET.DEVICE_PHOTOMETRIC)
@@ -185,8 +183,18 @@ class TrainStep:
 
     def forward(self, state: TrainState, images: Tensor) -> tuple:
         """The model's raw outputs: (loc, conf), RefineDet's (arm_loc,
-        arm_conf, odm_loc, odm_conf)."""
-        return state.model(images, phase="train")
+        arm_conf, odm_loc, odm_conf). Under ``TPU.REMAT`` the backward
+        runs the forward again, inside :func:`recomputing`."""
+        if not self.remat:
+            return state.model(images, phase="train")
+        calls = []
+
+        def run(x):
+            with recomputing() if calls else contextlib.nullcontext():
+                calls.append(None)
+                return state.model(x, phase="train")
+
+        return checkpoint(run, images, use_reentrant=False)
 
     def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
              step: int) -> dict:
@@ -208,8 +216,15 @@ class TrainStep:
         n = torch.clamp(out.num_pos, min=1).float()
         loss_l = out.loss_loc_sum / n
         loss_c = out.loss_conf_sum / n
-        return {"loss": self.loc_w * loss_l + loss_c, "loss_loc": loss_l,
-                "loss_conf": loss_c, "num_pos": out.num_pos}
+        metrics = {"loss": self.loc_w * loss_l + loss_c, "loss_loc": loss_l,
+                   "loss_conf": loss_c, "num_pos": out.num_pos}
+        if self.rep_w > 0:
+            rep_sum, rep_n = repulsion_loss(outputs[0], self.priors, boxes,
+                                            labels, self.variances)
+            loss_rep = rep_sum / torch.clamp(rep_n, min=1).float()
+            metrics["loss"] = metrics["loss"] + self.rep_w * loss_rep
+            metrics["loss_repul"] = loss_rep
+        return metrics
 
     def backward(self, state: TrainState, metrics: dict) -> None:
         state.optimizer.zero_grad(set_to_none=True)

@@ -52,8 +52,8 @@ def _defaults() -> AttrDict:
     C.LOG.SHOW_SALIENCY = False
 
     # compute dtype for the convs: "bfloat16" (the default) or "float32";
-    # parameters stay f32 either way. REMAT (activation checkpointing) is
-    # read only to refuse it: the port does not have it yet. QUANT is the
+    # parameters stay f32 either way. REMAT checkpoints the train step's
+    # whole model forward and recomputes it in the backward. QUANT is the
     # serving compute of the eval step: "" (off) or "int8", dynamic
     # per-image activation and per-channel weight quantization onto the
     # s8 tensor cores (ops/quant.py); training is unaffected, and any
@@ -104,8 +104,7 @@ def _defaults() -> AttrDict:
     C.LOSS.OVERLAP_THRESH = 0.5
     C.LOSS.NEG_POS_RATIO = 3
     C.LOSS.LOC_WEIGHT = 1.0
-    # read only to refuse a nonzero weight: the repulsion loss is not
-    # ported yet
+    # the repulsion loss (RepGT) is added at this weight; 0 = off
     C.LOSS.REPULSION_WEIGHT = 0.0
     # RefineDet: the ODM matches against the raw anchor grid, with no
     # negative-anchor filtering, for this many first updates, then

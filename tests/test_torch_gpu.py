@@ -1,5 +1,6 @@
-"""The CUDA greedy-NMS kernel's two entries against their plain twins,
-the int8 conv (``torch._int_mm``) against its float64 oracle, the
+"""The CUDA greedy-NMS kernel's two entries against their plain twins
+(the registered op ``odtpu::nms_rows`` too), an exported artifact
+against the live path, the int8 conv (``torch._int_mm``) against its float64 oracle, the
 serving path's launches (SSD300 and RefineDet320) and train steps
 (SSD300, and SSD300 over DRN-D-22 with its batch norms) against the
 CPU's, on a card.
@@ -10,6 +11,7 @@ JAX, so on the card's machine it runs without the repo's conftest:
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +20,7 @@ from odtpu_torch.infer import Detector, random_images, random_state_dict
 from odtpu_torch.models import probe_layer_dims
 from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
-from odtpu_torch.ops.cuda import nms_kernel
+from odtpu_torch.ops.cuda import batch_norm, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
 from odtpu_torch.utils.config import default_cfg, load_cfg
 
@@ -72,6 +74,26 @@ def test_rows_kernel_equals_twin_on_edge_cases(priors):
     g = torch.Generator().manual_seed(3)
     for label, boxes, scores in chip_smoke.edge_cases(g, priors):
         chip_smoke.check_rows(*chip_smoke.rows_case(g, boxes, scores), label)
+
+
+def test_registered_op_equals_plain_on_edge_cases(priors):
+    """``odtpu::nms_rows`` (what the serving path and an exported program
+    call) launches the kernel once a call on CUDA tensors and gives the
+    plain twin's rows, on the CPU copies too."""
+    g = torch.Generator().manual_seed(4)
+    for label, boxes, scores in chip_smoke.edge_cases(g, priors):
+        case = chip_smoke.rows_case(g, boxes, scores)
+        before = nms_kernel.ROWS_LAUNCHES
+        got = torch.ops.odtpu.nms_rows(*case, chip_smoke.IOU,
+                                       chip_smoke.CONF)
+        torch.cuda.synchronize()
+        assert nms_kernel.ROWS_LAUNCHES == before + 1, label
+        want = nms_kernel.nms_rows_plain(*case, chip_smoke.IOU,
+                                         chip_smoke.CONF)
+        assert chip_smoke.same_bits(got, want), label
+        cpu = [t.cpu() if torch.is_tensor(t) else t for t in case]
+        assert chip_smoke.same_bits(got.cpu(), torch.ops.odtpu.nms_rows(
+            *cpu, chip_smoke.IOU, chip_smoke.CONF)), label
 
 
 def test_rows_wrapper_refuses_what_it_cannot_take(priors):
@@ -207,3 +229,56 @@ def test_batch_normed_train_step_on_card_matches_cpu(priors):
     init = {k: v for k, v in weights.items() if k in cpu["stats"]}
     assert all(not torch.equal(cpu["stats"][k].float(), v)
                for k, v in init.items())
+
+
+@pytest.mark.parametrize("name", ["ssd_vgg16_voc", "ssd_drn22_voc"])
+def test_exported_artifact_on_card_equals_live_path(priors, tmp_path, name):
+    """A batch-polymorphic bfloat16 artifact of seeded SSD300 (and over
+    DRN-D-22, its norms the ``odtpu::bn_eval`` op), exported and loaded
+    on the card: at B=1 and B=3 its rows equal the live ``Detector``'s on
+    the same batch, one ``nms_rows`` launch a call."""
+    from odtpu_torch import export
+    from odtpu_torch.utils.checkpoint import to_odtpu_params
+    cfg = load_cfg(name)
+    weights = random_state_dict(cfg, seed=0)
+    npz = tmp_path / "w.npz"
+    np.savez(npz, **to_odtpu_params(weights))
+    art = str(tmp_path / "model.zip")
+    export.export_artifact(art, cfg, ckpt=str(npz), batch=0, device="cuda")
+    call, meta = export.load_artifact(art, "cuda")
+    det = Detector(cfg, weights, device="cuda")
+    for b in (1, 3):
+        images = torch.from_numpy(random_images(b, (300, 300), b)).cuda()
+        before = nms_kernel.ROWS_LAUNCHES
+        got = call(images)
+        torch.cuda.synchronize()
+        assert nms_kernel.ROWS_LAUNCHES == before + 1
+        assert torch.equal(got, det(images)["rows"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_bn_eval_kernel_equals_plain(priors, dtype):
+    """The eval-mode batch-norm kernel against its plain twin, bit for
+    bit, channels-last and contiguous, with C and H*W multiples of 8 (one
+    16-byte pack a thread) and not, and a row offset that breaks the
+    pack's alignment; one launch a call, and a call that needs a gradient
+    refused."""
+    g = torch.Generator().manual_seed(9)
+    wide = batch_norm.wide_dtype(dtype)
+    for n, c, h, w in ((4, 64, 19, 19), (2, 24, 8, 8), (3, 3, 5, 7),
+                       (1, 1024, 1, 1)):
+        x = (torch.randn(n + 1, c, h, w, generator=g) * 3).to(dtype)
+        params = [(torch.randn(c, generator=g) * s + o).to(wide).cuda()
+                  for s, o in ((0.5, 0.0), (0.2, 1.0), (0.5, 0.0))]
+        for xc in (x.cuda()[1:], x.cuda().contiguous(
+                memory_format=torch.channels_last)[1:]):
+            before = batch_norm.LAUNCHES
+            got = batch_norm.bn_eval(xc, *params)
+            assert batch_norm.LAUNCHES == before + 1
+            want = batch_norm.bn_eval_plain(xc, *params)
+            assert got.dtype == dtype and got.stride() == xc.stride()
+            assert chip_smoke.same_bits(got, want), (n, c, h, w, dtype)
+    leaf = params[1].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        batch_norm.bn_eval(xc, params[0], leaf, params[2])

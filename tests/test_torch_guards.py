@@ -53,8 +53,11 @@ def test_port_and_chip_smoke_import_without_refused_modules():
         for family in ("drn", "drnssd", "fpn", "fssd", "refinedet",
                        "rfbnet"):
             assert "odtpu_torch.models." + family in names, family
-        # int8 serving and the HTTP server
-        for module in ("odtpu_torch.ops.quant", "odtpu_torch.serve"):
+        # int8 serving, the HTTP server, the export entry point and the
+        # weight tools
+        for module in ("odtpu_torch.ops.quant", "odtpu_torch.serve",
+                       "odtpu_torch.export", "odtpu_torch.tools.ckpt_to_npz",
+                       "odtpu_torch.tools.convert_torch_weights"):
             assert module in names, module
         import chip_smoke
         leaked = [m for m in sys.modules
