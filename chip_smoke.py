@@ -164,6 +164,24 @@ Phases, each printing one JSON line:
    from the same state with and without remat (cuDNN deterministic):
    every update and running statistic within 1e-5 relative L2, the
    statistics moved once.
+18. ddp: data parallelism, one process a rank, each launched by
+   ``python -m torch.distributed.run`` running this script as a child
+   (``--ddp_child``, through the train command line's ``distributed``,
+   ``setup`` and ``run``), on a seeded VOC tree (320 + 128 images).
+   Two ranks on gloo, both on cuda:0 (NCCL refuses two ranks on one
+   card), each take one step of SSD300 in float32 (TF32 and cuDNN off)
+   and of RFBNet300 in float64 on their 2 of 4 images; each is held to
+   the one-process step on the 4 (:data:`DDP_LIMITS`: 1e-3 and 1e-9
+   relative L2 a tensor, running statistics too), the ranks bit-equal.
+   Then the same two processes run RFBNet300 ``--multihost``, 4 bf16
+   steps of 16 images a rank and one validation of each rank's 64 test
+   images: one ``nms_rows`` launch an eval batch and one ``bn_eval`` a
+   norm an eval batch on each rank, the same losses and mAP on both.
+   Last, one process trains SSD300 at batch 32 in bf16 (the uint8 path)
+   for 10 steps and one validation, without ``--multihost`` and then
+   with it at world 1 on NCCL (cuDNN deterministic): equal losses and
+   mAP, ms a step of both, and the all-reduce of SSD300's float32
+   gradients in ms.
 Each tree goes under ``build/`` and is removed after its phase. Then each
 phase's seconds, the ``kernels`` line (the host sampler under ``host``,
 the int8 GEMM under ``library``), and last ``{"ok": true, "device":
@@ -177,6 +195,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2764,7 +2783,440 @@ def phase_extras():
     return result
 
 
+# --- ddp: data parallelism across processes (odtpu_torch.parallel) ---
+
+DDP_TIMEOUT = 300  # seconds a launch of the ddp phase may take
+
+
+def start(cmd, log):
+    """Start ``cmd`` from the checkout's root in a session of its own, its
+    output to ``log``; returns a handle for :func:`finish`."""
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)), start_new_session=True)
+    return proc, cmd, log, time.perf_counter(), time.time()
+
+
+def stop(handle):
+    """End a :func:`start`ed command and what it started: SIGTERM to its
+    session (``torch.distributed.run`` passes it on to its workers, which
+    run in sessions of their own), SIGKILL after 30 s."""
+    proc = handle[0]
+    if proc.poll() is not None:
+        return
+    os.killpg(proc.pid, signal.SIGTERM)
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish(handle, timeout=DDP_TIMEOUT):
+    """Wait for a :func:`start`ed command, killing its whole session at
+    ``timeout`` seconds from its start; returns its seconds, or raises
+    with its log's tail when it failed."""
+    proc, cmd, log, t0, _ = handle
+    try:
+        rc = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        stop(handle)
+        rc = "timeout"
+    if rc != 0:
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError("{} exited {}:\n{}".format(" ".join(cmd), rc,
+                                                        tail))
+    return time.perf_counter() - t0
+
+
+def torchrun(nproc, *args):
+    """``python -m torch.distributed.run`` of this script's ``args`` on
+    ``nproc`` local processes (a rendezvous on a free local port)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+            *args]
+
+
+def timed_all_reduces():
+    """Wrap ``parallel.all_reduce_grads`` (the train step's gradient
+    all-reduce) in CUDA events; returns the list of (start, end) pairs
+    it fills."""
+    from odtpu_torch import parallel
+    events, all_reduce = [], parallel.all_reduce_grads
+
+    def timed(params):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        all_reduce(params)
+        end.record()
+        events.append((start, end))
+
+    parallel.all_reduce_grads = timed
+    return events
+
+
+def ddp_fit(work, tag, args, events, entered):
+    """The train command line's ``setup`` and ``run`` of ``args`` (in this
+    rank's process group, if any) on ``work``'s tree, every step logged;
+    writes what it read to ``<tag>_rank<r>.json``, with the wall clock at
+    which the process ``entered`` its work and at which it wrote."""
+    from odtpu_torch import parallel
+    t0 = time.perf_counter()
+    del events[:]
+    cfg, out_dir, _ = train.setup(args)
+    cfg.DATASET.DATASET_DIR = os.path.join(work, "voc")
+    cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+    cfg.TRAIN.LOG_LOSS_ITER = 1
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+    cfg.DATASET.NUM_WORKERS = 4
+    # the uint8 path: the host's C++ sampler, the distortion on the card
+    cfg.DATASET.DEVICE_PHOTOMETRIC = True
+    reset_counts()
+    res = train.run(args, cfg, out_dir, "")
+    torch.cuda.synchronize()
+    params = list(res["state"].model.parameters())
+    n_test = len(VOCDetection(cfg.DATASET.DATASET_DIR,
+                              cfg.DATASET.TEST_SETS))
+    out = {"rank": parallel.rank(), "world": parallel.world(),
+           "backend": (torch.distributed.get_backend()
+                       if parallel.initialized() else None),
+           "device": args.device, "cfg": args.cfg_name,
+           "batch": cfg.DATASET.TRAIN_BATCH_SIZE,
+           "losses": res["losses"], "evals": res["evals"],
+           "ckpt_steps": res["ckpt_steps"], "launches": counts(),
+           "bn_eval": batch_norm.LAUNCHES,
+           "norms": sum(isinstance(m, BatchNorm2d)
+                        for m in res["state"].model.modules()),
+           "eval_batches": -(-len(range(parallel.rank(), n_test,
+                                         parallel.world()))
+                             // cfg.DATASET.EVAL_BATCH_SIZE),
+           "grad_bytes": sum(p.numel() * p.element_size() for p in params),
+           "all_reduce_ms": [s.elapsed_time(e) for s, e in events],
+           "seconds": time.perf_counter() - t0, "entered": entered,
+           "written": time.time()}
+    with open(os.path.join(work, "{}_rank{}.json".format(
+            tag, out["rank"])), "w") as f:
+        json.dump(out, f)
+
+
+def same_on_ranks(run):
+    """Whether a :func:`family_parity_step` result (its loss, momenta and
+    running statistics) is bit-equal on every rank."""
+    from odtpu_torch import parallel
+    flat = torch.cat([torch.tensor([run["loss"]], dtype=torch.float64)]
+                     + [t.flatten() for part in ("momentum", "stats")
+                        for t in run[part].values()])
+    first = flat.clone()
+    torch.distributed.broadcast(first, 0)
+    return bool(parallel.global_sum(torch.tensor(
+        int(not torch.equal(first, flat)))) == 0)
+
+
+def ddp_steps(work, device):
+    """One step of each :data:`DDP_STEPS` case on this rank's block of the
+    global batch (:func:`family_parity_step`), compared across the ranks;
+    rank 0 writes the results to ``steps.pt`` (the momenta in the step's
+    dtype)."""
+    from odtpu_torch import parallel
+    r, w = parallel.rank(), parallel.world()
+    out = {}
+    for case in DDP_STEPS:
+        t0 = time.perf_counter()
+        name, dtype, cudnn = case
+        images, boxes, labels, params, weights = ddp_step_inputs(name)
+        b = images.shape[0] // w
+        rows = slice(r * b, (r + 1) * b)
+        with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            run = family_parity_step(
+                device, dtype, name, weights,
+                (images[rows], boxes[rows], labels[rows]),
+                {k: v[rows] for k, v in params.items()})
+        del run["masks"]
+        run["ranks_equal"] = same_on_ranks(run)
+        run["momentum"] = {k: v.to(getattr(torch, dtype))
+                           for k, v in run["momentum"].items()}
+        run["seconds"] = time.perf_counter() - t0
+        out["/".join(map(str, case))] = run
+    if r == 0:
+        torch.save(out, os.path.join(work, "steps.pt"))
+
+
+def ddp_child(argv):
+    """``python chip_smoke.py --ddp_child MODE WORK [train options]``, a
+    process of the ddp phase, cuDNN deterministic. MODE ``world2``: two
+    ranks on gloo, both on cuda:0 (as ``train.distributed`` joins a
+    group, with gloo for NCCL), run :func:`ddp_steps`, then the train
+    options, tagged ``gloo``. MODE ``world1``: the train options as they
+    are (``plain``), then with ``--multihost`` (``nccl``), one after the
+    other in this process, once the parent has written ``WORK/go`` (it
+    starts this launch early, so that its start-up overlaps the world-2
+    launch, and lets it train once that one is done)."""
+    from odtpu_torch import parallel
+    entered = time.time()
+    mode, work, train_argv = argv[0], argv[1], argv[2:]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    events = timed_all_reduces()
+    if mode == "world2":
+        device = parallel.init_distributed("cuda:0", "gloo")
+        try:
+            ddp_steps(work, device)
+            ddp_fit(work, "gloo", train.parse_args(train_argv + [
+                "--multihost", "--device", str(device),
+                "--output_dir", os.path.join(work, "gloo")]), events,
+                entered)
+        finally:
+            parallel.shutdown()
+        return
+    go = os.path.join(work, "go")
+    while not os.path.exists(go):
+        if time.time() - entered > DDP_TIMEOUT:
+            raise TimeoutError("no {} after {} s".format(go, DDP_TIMEOUT))
+        time.sleep(0.1)
+    entered = time.time()
+    for tag, extra in (("plain", []), ("nccl", ["--multihost"])):
+        args = train.parse_args(train_argv + extra + [
+            "--output_dir", os.path.join(work, tag)])
+        with train.distributed(args):
+            ddp_fit(work, tag, args, events, entered)
+
+
+# (configuration, dtype, cuDNN) of the world-2 steps: SSD300 in float32
+# with cuDNN off (each image's convs the same at any batch, so only the
+# sums over the ranks differ; with cuDNN, whose algorithms depend on the
+# batch size, a step of 2 + 2 images lay 1.6e-3 from one of 4: PERF.md),
+# RFBNet300 (50 batch norms) in float64
+DDP_STEPS = (("ssd_vgg16_voc", "float32", False),
+             ("rfbnet300_vgg16_voc", "float64", True))
+# the limits of a rank's updates and running statistics against the
+# one-process step: train_parity's without cuDNN, and 1e-9 in float64
+DDP_LIMITS = {DDP_STEPS[0]: 1e-3, DDP_STEPS[1]: 1e-9}
+# what --multihost picks for one process a card
+WORLD1_BACKEND = "nccl"
+
+
+def ddp_step_inputs(name, batch=4):
+    """The global batch of a world-2 step, the same in every process:
+    :func:`parity_batch` images and GT at ``name``'s size, seeded
+    photometric parameters and :func:`random_state_dict`'s weights."""
+    cfg = train_cfg("float32", name)
+    images, boxes, labels = parity_batch(batch, cfg=cfg)
+    params = draw_params(batch, torch.Generator().manual_seed(5))
+    return images, boxes, labels, params, random_state_dict(cfg, seed=0)
+
+
+def phase_ddp(n_train=320, n_test=128, steps=10):
+    """Data parallelism through the train command line, one process a
+    rank, launched by ``python -m torch.distributed.run`` (:func:`ddp_child`):
+
+    (b) two ranks on gloo, both on cuda:0 (NCCL refuses two ranks on one
+    card): one step of each :data:`DDP_STEPS` case on its 2 of 4 images,
+    held to the same step of one process on the 4 (run here meanwhile)
+    within :data:`DDP_LIMITS`, the ranks bit-equal; then, in the same
+    processes, RFBNet300 ``--multihost`` for 4 steps (bf16, 16 images a
+    rank) and one validation, each rank on its half of the test set: one
+    ``nms_rows`` launch an eval batch and one ``bn_eval`` a norm an eval
+    batch on each rank, the same losses and mAP on both, one checkpoint;
+    (a) in one process, SSD300 (bf16, batch 32, the uint8 path) for
+    ``steps`` steps and one validation without ``--multihost``,
+    then with it at world 1 on NCCL: equal losses and mAP, ms a step
+    of both, and the NCCL all-reduce's ms of SSD300's gradients."""
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ddp_",
+                            dir=build.BUILD_DIR.parent)
+    world1 = world2 = None
+    try:
+        write_voc_tree(os.path.join(work, "voc"),
+                       (("trainval", n_train), ("test", n_test)))
+        w = random_state_dict(load_cfg(), seed=0)[
+            "backbone.conv1_1.conv.weight"]
+        basenet = os.path.join(work, "basenet.npz")
+        np.savez(basenet, **{"conv1_1/kernel": w.permute(2, 3, 1, 0).numpy()})
+        common = ["--basenet", basenet]
+
+        # (b): the two ranks, and meanwhile the one-process steps here and
+        # the start-up of (a)'s process, which waits for work/go
+        rfb = common + ["--cfg_name", "rfbnet300_vgg16_voc", "--max_iter",
+                        "4"]
+        world2 = start(torchrun(2, "--ddp_child", "world2", work, *rfb),
+                       os.path.join(work, "world2.log"))
+        world1 = start(torchrun(1, "--ddp_child", "world1", work, *common,
+                                "--max_iter", str(steps)),
+                       os.path.join(work, "world1.log"))
+        began = {"world2": world2[-1], "world1": world1[-1]}
+        one = {}
+        for case in DDP_STEPS:
+            name, dtype, cudnn = case
+            images, boxes, labels, params, weights = ddp_step_inputs(name)
+            with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                one[case] = family_parity_step("cuda", dtype, name, weights,
+                                               (images, boxes, labels),
+                                               params)
+        seconds = {"world2": finish(world2)}
+        ranks = torch.load(os.path.join(work, "steps.pt"), weights_only=False)
+        step_lines, failing = [], []
+        for case in DDP_STEPS:
+            key, limit, ref = "/".join(map(str, case)), DDP_LIMITS[case], \
+                one[case]
+            r0 = ranks[key]
+            r0["momentum"] = {k: v.double() for k, v in r0["momentum"].items()}
+            updates = momentum_errors(r0["momentum"], ref["momentum"])
+            stats = stats_errors(r0["stats"], ref["stats"])
+            worst = max(updates, key=updates.get)
+            line = {"cfg": case[0], "dtype": case[1], "cudnn": case[2],
+                    "limit": limit, "loss": r0["loss"],
+                    "loss_one_process": ref["loss"],
+                    "num_pos": r0["num_pos"],
+                    "seconds_a_rank": r0["seconds"],
+                    "max_update_error": updates[worst], "worst": worst,
+                    "global_update_error": global_error(r0["momentum"],
+                                                        ref["momentum"]),
+                    "max_stats_error": max(stats.values(), default=0.0),
+                    "running_stats": len(stats) // 2,
+                    "ranks_equal": r0["ranks_equal"]}
+            step_lines.append(line)
+            failing += ["{} {} {}".format(key, k, v)
+                        for k, v in {**updates, **stats}.items()
+                        if not v <= limit]
+            if not line["ranks_equal"] or r0["num_pos"] != ref["num_pos"] \
+                    or not math.isclose(
+                        r0["loss"], ref["loss"], rel_tol=1e-4):
+                failing.append("{}: {}".format(key, line))
+        del one, ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "ddp_steps", "world": 2, "backend": "gloo",
+              "device": "cuda:0 (both ranks)", "steps": step_lines,
+              "nvidia_smi": power_limit()})
+        if failing:
+            raise AssertionError("world-2 steps off the one-process "
+                                 "step: {}".format(failing[:20]))
+
+        gloo = []
+        for r in range(2):
+            with open(os.path.join(work, "gloo_rank{}.json".format(r))) as f:
+                gloo.append(json.load(f))
+
+        # (a): the command line without --multihost, then with it at world
+        # 1 on NCCL, one after the other in one process
+        go = time.time()
+        open(os.path.join(work, "go"), "w").close()
+        seconds["world1"] = finish(world1)
+        seconds["world1_after_go"] = time.time() - go
+        runs = {}
+        for tag in ("plain", "nccl"):
+            with open(os.path.join(work, tag + "_rank0.json")) as f:
+                runs[tag] = json.load(f)
+
+        def ms_per_step(run):
+            # the first step's line has no window (fit starts the clock
+            # after it)
+            ms = [1000.0 * run["batch"] / m["ips"] for m in run["losses"]
+                  if m["ips"] > 0]
+            return float(np.median(ms)), ms
+
+        def same(run):
+            return [{k: m[k] for k in ("step", "loss", "loss_loc",
+                                       "loss_conf", "num_pos")}
+                    for m in run["losses"]], run["evals"]
+
+        lines = {}
+        for tag, run in runs.items():
+            ms, each = ms_per_step(run)
+            lines[tag] = {"world": run["world"], "backend": run["backend"],
+                          "ms_per_step": ms, "ms_each": each,
+                          "losses": run["losses"], "evals": run["evals"],
+                          "launches": run["launches"],
+                          "bn_eval": run["bn_eval"],
+                          "all_reduce_ms": run["all_reduce_ms"],
+                          "seconds": run["seconds"]}
+        nccl = runs["nccl"]
+        result = {"phase": "ddp", "cfg": "ssd_vgg16_voc", "dtype": "bfloat16",
+                  "batch": BATCH, "steps": steps,
+                  "train_images": n_train, "test_images": n_test,
+                  "world1": lines,
+                  "losses_and_map_equal": same(runs["plain"]) == same(nccl),
+                  "grad_bytes": nccl["grad_bytes"],
+                  "all_reduce_ms_median": float(np.median(
+                      nccl["all_reduce_ms"][1:])),
+                  "overhead_ms_per_step": lines["nccl"]["ms_per_step"]
+                  - lines["plain"]["ms_per_step"],
+                  "world2": {"cfg": "rfbnet300_vgg16_voc", "steps": 4,
+                             "batch_per_rank": BATCH // 2,
+                             "ranks": [{k: g[k] for k in (
+                                 "rank", "losses", "evals", "launches",
+                                 "bn_eval", "norms", "eval_batches",
+                                 "ckpt_steps", "all_reduce_ms", "seconds")}
+                                 for g in gloo]},
+                  "launch_seconds": seconds,
+                  # each launch's seconds before its first process began
+                  # its work (world 1: after work/go), and after its last
+                  # wrote its results
+                  "launch_start_s": {
+                      "world2": min(g["entered"] for g in gloo)
+                      - began["world2"],
+                      "world1": nccl["entered"] - go},
+                  "launch_exit_s": {
+                      "world2": began["world2"] + seconds["world2"]
+                      - max(g["written"] for g in gloo),
+                      "world1": began["world1"] + seconds["world1"]
+                      - nccl["written"]},
+                  "nvidia_smi": power_limit()}
+        emit(result)
+        for tag, run in runs.items():
+            want = {"nms_mask": 0, "nms_rows": run["eval_batches"]}
+            if run["launches"] != want or run["bn_eval"] != 0:
+                raise AssertionError("{}: launches {} bn_eval {}".format(
+                    tag, run["launches"], run["bn_eval"]))
+        if not result["losses_and_map_equal"] or len(
+                nccl["all_reduce_ms"]) != steps or runs["plain"][
+                    "all_reduce_ms"] or nccl["backend"] != WORLD1_BACKEND:
+            raise AssertionError("world 1 on NCCL against the plain run: "
+                                 "{}".format(lines))
+        g0, g1 = gloo
+        for g in gloo:
+            if g["launches"] != {"nms_mask": 0,
+                                 "nms_rows": g["eval_batches"]} \
+                    or g["bn_eval"] != g["norms"] * g["eval_batches"] \
+                    or g["ckpt_steps"] != [4] or len(g["all_reduce_ms"]) != 4 \
+                    or not all(math.isfinite(m["loss"]) and m["num_pos"] > 0
+                               for m in g["losses"]):
+                raise AssertionError("world-2 RFBNet300 rank {}: {}".format(
+                    g["rank"], {k: g[k] for k in ("launches", "bn_eval",
+                                                  "norms", "ckpt_steps")}))
+        if g0["losses"] and [dict(m, ips=0) for m in g0["losses"]] != [
+                dict(m, ips=0) for m in g1["losses"]] \
+                or g0["evals"] != g1["evals"] or len(g0["evals"]) != 1:
+            raise AssertionError("the two ranks disagree: {} {}".format(
+                g0["evals"], g1["evals"]))
+        return result
+    finally:
+        for handle in (world1, world2):  # a failure left them running
+            if handle is not None:
+                stop(handle)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ddp_launches(ddp, name):
+    """The ``ddp`` phase's launches of kernel entry ``name`` by run: the
+    world-1 runs, and each rank of the world-2 RFBNet300 run."""
+    def of(run):
+        return run["bn_eval"] if name == "bn_eval" else run["launches"][name]
+    return {**{"ssd300_world1_" + tag: of(run)
+               for tag, run in ddp["world1"].items()},
+            "rfbnet300_world2_gloo": [of(r) for r in ddp["world2"]["ranks"]]}
+
+
 def main():
+    if sys.argv[1:2] == ["--ddp_child"]:
+        ddp_child(sys.argv[2:])
+        return
     t_start = time.perf_counter()
     seconds = {}
 
@@ -2796,6 +3248,7 @@ def main():
     served = timed("serve", phase_serve)
     exported = timed("export", phase_export)
     timed("extras", phase_extras)
+    ddp = timed("ddp", phase_ddp)
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -2824,7 +3277,8 @@ def main():
                       for mode in ("bfloat16", "int8")},
             "export": {"{} B={}".format(art, b): one["launches"][name]
                        for art, a in exported["artifacts"].items()
-                       for b, one in a["served"].items()}}
+                       for b, one in a["served"].items()},
+            "ddp": ddp_launches(ddp, name)}
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
     # the host sampler is C++ for the host, not a kernel of the card: it
@@ -2884,7 +3338,8 @@ def main():
                              for f in families},
                 "int8": {r["cfg"]: r["int8"]["bn_eval_launches"]
                          for r in int8},
-                "serving_ssd300": bf16["bn_eval_launches"]},
+                "serving_ssd300": bf16["bn_eval_launches"],
+                "ddp": ddp_launches(ddp, "bn_eval")},
             "timed_on": "{} {}".format(largest["cfg"],
                                        largest["bn_eval"]["largest"]),
             **largest["bn_eval"]}

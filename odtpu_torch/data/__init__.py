@@ -4,6 +4,7 @@ augmentation, and :func:`dataset_factory`."""
 
 from __future__ import annotations
 
+from .. import parallel
 from .augment import SSDAugmentation
 from .coco import COCODetection
 from .loader import DetLoader
@@ -14,8 +15,10 @@ def dataset_factory(phase, cfg):
     """A loader of ``cfg``'s dataset (``odtpu/data/__init__.py``): phase
     "train" shuffles, drops the last short batch and augments fully;
     "eval" keeps the order and resizes, the uint8 images normalised on
-    the device. One process loads everything (the multi-host shard waits
-    for the DDP slice)."""
+    the device. In a process group each rank loads its slice
+    (``DetLoader(shard=(rank, world))``), and the train batch is its share
+    of ``TRAIN_BATCH_SIZE``, the global batch; the eval batch stays whole
+    on each rank, as in odtpu, and the evaluator gathers the rows."""
     name = cfg.DATASET.NAME.upper()
     train = phase == "train"
     sets = cfg.DATASET.TRAIN_SETS if train else cfg.DATASET.TEST_SETS
@@ -39,11 +42,18 @@ def dataset_factory(phase, cfg):
         device_photometric=train and bool(cfg.DATASET.DEVICE_PHOTOMETRIC),
         device_normalize=not train,
         photometric=bool(cfg.DATASET.PHOTOMETRIC))
+    world, rank = parallel.world(), parallel.rank()
+    batch = int(cfg.DATASET.TRAIN_BATCH_SIZE if train
+                else cfg.DATASET.EVAL_BATCH_SIZE)
+    if train and world > 1:
+        if batch % world:
+            raise ValueError("TRAIN_BATCH_SIZE {} does not divide among {} "
+                             "processes".format(batch, world))
+        batch //= world
     return DetLoader(
-        dataset, transform,
-        batch_size=(cfg.DATASET.TRAIN_BATCH_SIZE if train
-                    else cfg.DATASET.EVAL_BATCH_SIZE),
+        dataset, transform, batch_size=batch,
         max_boxes=int(cfg.DATASET.MAX_BOXES),
         shuffle=train, drop_last=train,
         num_workers=int(cfg.DATASET.NUM_WORKERS),
-        num_pics=0 if train else int(cfg.DATASET.NUM_EVAL_PICS))
+        num_pics=0 if train else int(cfg.DATASET.NUM_EVAL_PICS),
+        shard=(rank, world))

@@ -25,13 +25,24 @@ class DetLoader:
         labels  [B,M] int32 (-1 = pad)
         extra   [B,3] f32 original (h, w, c)
         ids     list[str] length B
-        indices [B] int64 dataset indices
-    The multi-host shard of ``odtpu``'s loader waits for DDP.
+        indices [B] int64 global dataset indices (a sharded evaluator
+                places each result at its global position)
+
+    ``shard=(rank, world)``: data parallelism, as ``odtpu``'s loader
+    shards it: every rank shuffles the whole index space alike and loads
+    every ``world``-th item from its ``rank``; ``batch_size`` is then the
+    rank's share of the global batch. The augmentation's generator is
+    keyed by (seed, epoch, batch index), the same on every rank. With
+    ``drop_last`` every rank keeps ``len // world`` items, so that all
+    ranks take the same count of steps (``odtpu`` gives the first ranks
+    one batch more where the remainder completes one, and a collective
+    of that step would wait for the others forever); its batches are
+    ``odtpu``'s otherwise.
     """
 
     def __init__(self, dataset, transform, batch_size, max_boxes=60,
                  shuffle=False, drop_last=False, num_workers=4, seed=0,
-                 num_pics=0):
+                 num_pics=0, shard=(0, 1)):
         self.dataset = dataset
         self.transform = transform
         self.batch_size = int(batch_size)
@@ -41,13 +52,21 @@ class DetLoader:
         self.num_workers = max(1, int(num_workers))
         self.seed = seed
         self.epoch = 0
+        self.shard = tuple(shard)
         n = len(dataset)
         self.num_items = min(n, num_pics) if num_pics else n
 
     def __len__(self):
-        n = self.num_items
+        n = self._items()
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
+
+    def _items(self):
+        """The count of items this rank loads an epoch."""
+        rank, world = self.shard
+        if self.drop_last:
+            return self.num_items // world
+        return len(range(rank, self.num_items, world))
 
     def _item(self, index, rng):
         rec = self.dataset[index]
@@ -73,6 +92,8 @@ class DetLoader:
         order = np.arange(self.num_items)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        rank, world = self.shard
+        order = order[rank::world][:self._items()]
         bs = self.batch_size
         for i in range(0, len(order), bs):
             chunk = order[i:i + bs]

@@ -2,15 +2,21 @@
 mAP.
 
 Counterpart of ``odtpu/eval/evaluator.py`` ``EvalBase.validate``,
-``EvalVOC``, ``EvalCOCO`` and ``eval_solver_factory`` (the multi-host
-gather waits for the DDP slice, the TensorBoard images and PR curves for
-``utils/visualize.py``). The eval step is ``step(images) -> {"rows":
-[B, R, 6], "dropped": [B]}`` (``odtpu_torch.eval_step``); the rows'
-boxes are scaled from [0, 1] to each image's original pixels by the
-batch's ``extra`` (h, w, c), short last batches are padded to the
-loader's batch size, and a nonzero ``dropped`` count (per-class
-survivors the row cap discarded) is reported in ``last_timing`` and as a
-warning.
+``EvalVOC``, ``EvalCOCO`` and ``eval_solver_factory`` (the TensorBoard
+images and PR curves wait for ``utils/visualize.py``). The eval step is
+``step(images) -> {"rows": [B, R, 6], "dropped": [B]}``
+(``odtpu_torch.eval_step``); the rows' boxes are scaled from [0, 1] to
+each image's original pixels by the batch's ``extra`` (h, w, c), short
+last batches are padded to the loader's batch size, and a nonzero
+``dropped`` count (per-class survivors the row cap discarded) is
+reported in ``last_timing`` and as a warning.
+
+In a process group each rank validates its slice of the test set (the
+loader's shard) with no collective inside the loop; at the end the rows
+are all-gathered (``parallel.allgather_host_rows``), each at its image's
+global dataset index, so that every rank scores the same mAP, and the
+image and ``dropped`` counts are summed over the ranks. Only rank 0
+writes the detection files.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import time
 
 import numpy as np
 
+from .. import parallel
 from ..data.loader import pad_batch_to
 from .coco_eval import build_gt_index, evaluate_coco
 from .voc_eval import evaluate_detections
@@ -41,6 +48,9 @@ class EvalBase:
 
     def evaluate_stats(self):
         raise NotImplementedError
+
+    def _gather_multihost(self):
+        """All-gather the ranks' results (a no-op in one process)."""
 
     def validate(self, eval_step):
         """Run ``eval_step`` over the loader; returns (per-class results,
@@ -72,12 +82,14 @@ class EvalBase:
                                       batch["ids"][:valid], img_idx,
                                       indices=indices)
             n_images += valid
+        self._gather_multihost()
+        n_images, n_dropped = parallel.sum_over_ranks(n_images, n_dropped)
         total = time.time() - t0
         self.last_timing = {"detect_s": t_detect, "total_s": total,
                             "images": n_images,
                             "ips": n_images / max(total, 1e-9),
                             "dropped_dets": n_dropped}
-        if n_dropped:
+        if n_dropped and parallel.is_main():
             cap = int(self.cfg.EVAL.COMPACT_ROWS) or int(self.cfg.EVAL.TOP_K)
             print("WARNING: the eval rows dropped {} detections beyond the "
                   "{}-per-image cross-class cap; raise EVAL.COMPACT_ROWS"
@@ -116,11 +128,45 @@ class EvalVOC(EvalBase):
             img_idx += 1
         return img_idx
 
+    def _gather_multihost(self):
+        if parallel.world() == 1:
+            return
+        chunks = []
+        for cls in range(1, self.num_classes):
+            for pos, r in enumerate(self.results[cls]):
+                if r.size:
+                    head = np.broadcast_to(
+                        np.asarray([pos, cls], np.float32), (len(r), 2))
+                    chunks.append(np.concatenate([head, r], axis=1))
+        local = (np.concatenate(chunks, 0) if chunks
+                 else np.zeros((0, 7), np.float32))
+        merged = parallel.allgather_host_rows(local)
+        self.reset_results()
+        self._scatter_rows(merged)
+
+    def _scatter_rows(self, merged):
+        """Put gathered [N, 7] rows (pos, cls, x1, y1, x2, y2, score) into
+        ``results[cls][pos]``: one stable sort by (cls, pos), then one
+        slice a group, the incoming order kept within it (appending row
+        by row would regrow each array, quadratic on a full test set)."""
+        if not len(merged):
+            return
+        merged = np.asarray(merged, np.float32)
+        merged = merged[np.lexsort((merged[:, 0], merged[:, 1]))]
+        keys = merged[:, :2].astype(np.int64)
+        starts = np.flatnonzero(
+            np.r_[True, np.any(keys[1:] != keys[:-1], axis=1)])
+        bounds = np.r_[starts, len(merged)]
+        for s, e in zip(bounds[:-1], bounds[1:]):
+            pos, cls = int(keys[s, 0]), int(keys[s, 1])
+            self.results[cls][pos] = np.ascontiguousarray(merged[s:e, 2:])
+
     def evaluate_stats(self):
         res, mAP = evaluate_detections(
             self.results, self.loader.dataset, self.output_dir,
             test_set=self.test_set,
-            use_07_metric=bool(self.cfg.EVAL.USE_07_METRIC))
+            use_07_metric=bool(self.cfg.EVAL.USE_07_METRIC),
+            write_files=parallel.is_main())
         return res, [mAP]
 
 
@@ -148,6 +194,13 @@ class EvalCOCO(EvalBase):
                                   r[4] - r[2], r[0], cat))
             img_idx += 1
         return img_idx
+
+    def _gather_multihost(self):
+        if parallel.world() == 1:
+            return
+        local = (np.asarray(self.rows, np.float32).reshape(-1, 7)
+                 if self.rows else np.zeros((0, 7), np.float32))
+        self.rows = [tuple(r) for r in parallel.allgather_host_rows(local)]
 
     def evaluate_stats(self):
         gt_index = build_gt_index(self.loader.dataset)

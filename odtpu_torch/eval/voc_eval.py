@@ -128,8 +128,11 @@ def load_voc_gt(dataset, cache_path=None, keep_all=True):
         recs[img_id] = parse_rec(dataset.anno_path(i))
     if cache_path:
         os.makedirs(osp.dirname(cache_path), exist_ok=True)
-        with open(cache_path, "wb") as f:
+        # whole or absent to a reader: the ranks of a run share the path
+        tmp = "{}.{}.tmp".format(cache_path, os.getpid())
+        with open(tmp, "wb") as f:
             pickle.dump(recs, f)
+        os.replace(tmp, cache_path)
     return recs
 
 

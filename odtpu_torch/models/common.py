@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from .. import parallel
 from ..ops import quant
 from ..ops.cuda import batch_norm as bn_ops
 
@@ -78,13 +79,30 @@ def batch_norm(bn: BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
     channel, which it refuses, the statistics are computed directly, with
     autograd through them, as flax's are: the variance is 0 and the
     output the bias.
+
+    In a process group of several ranks the statistics are the global
+    batch's, as flax's are under ``odtpu``'s sharded batch: the direct
+    computation with its two sums taken over the ranks (the mean, then
+    the biased variance about it) by a differentiable all-reduce, so that
+    each rank's loss reaches every rank's inputs through them. Every rank
+    holds the same count of values a channel (the same local batch).
     """
     if not bn.training:
         return bn(x).to(dtype)
     x = float32_or_wider(x)
     weight, bias = bn.weight.to(x.dtype), bn.bias.to(x.dtype)
     n = x.numel() // x.shape[1]
-    if n > 1:
+    world = parallel.world()
+    if world > 1:
+        count = n * world
+        mean = parallel.all_reduce_sum(
+            x.sum((0, 2, 3), keepdim=True)) / count
+        xc = x - mean
+        var = parallel.all_reduce_sum(
+            xc.square().sum((0, 2, 3), keepdim=True)) / count
+        mul = torch.rsqrt(var + bn.eps) * weight[:, None, None]
+        y = torch.addcmul(bias[:, None, None], xc, mul)
+    elif n > 1:
         # buffers at 0 that take the batch's statistics whole (momentum
         # 1): 0 + (stat - 0) is stat exactly
         mean = torch.zeros_like(bn.running_mean, dtype=x.dtype)

@@ -25,13 +25,28 @@ into ``--output_dir`` (default ``weights/<job_group>/<cfg_name>``), with
 TensorBoard under ``logs/<job_group>_<cfg_name>``. The configuration is
 one of ``utils.config.CFGS``, by name or by its yml's path: the port
 reads no yaml. For the same reason the run's configuration is archived
-as ``config_used.json`` (``odtpu`` writes ``config_used.yml``). The
-multi-host options wait for the DDP slice.
+as ``config_used.json`` (``odtpu`` writes ``config_used.yml``).
+
+Data parallelism over N cards, one process a card (``train.py:49-51``,
+``:118-121``)::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m odtpu_torch.train --multihost --cfg_name ssd_vgg16_voc ...
+
+``--multihost`` joins the process group that ``torch.distributed.run``
+describes (NCCL; ``--device cuda`` is ``cuda:LOCAL_RANK``), and each
+rank loads its slice of the data with its share of
+``TRAIN_BATCH_SIZE``, the global batch. A step of N ranks is the
+one-process step on the global batch (``train_step``); every rank
+validates its slice and scores the global mAP; rank 0 writes the
+checkpoints, TensorBoard, the trace and the per-step lines.
+``--max_rss_gb`` (a TPU host's memory guard) is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -39,6 +54,7 @@ from pathlib import Path
 
 import torch
 
+from . import parallel
 from .data import dataset_factory
 from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
@@ -97,22 +113,31 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     the final step, the logged losses, each validation's step, mAP and
     dropped count, the checkpoint steps on disk and the
     :class:`~odtpu_torch.train_step.TrainState`.
+
+    In a process group (``parallel``) every rank calls it with its own
+    loader shard and evaluator: the steps are the global batch's, the
+    ranks start from rank 0's weights, every rank validates, and only
+    rank 0 prints, writes checkpoints, TensorBoard and the trace. The
+    images/s are the global batch's.
     """
     device = torch.device(device)
     out_dir = Path(out_dir)
+    rank0 = parallel.is_main()
+    say = print if rank0 else (lambda *a, **k: None)
     ckpt = Checkpointer(out_dir / "ckpt")
     if auto_resume and not resume and ckpt.latest_step() is not None:
         resume = str(ckpt.directory)
-        print("auto-resume: checkpoint found under", resume, flush=True)
+        say("auto-resume: checkpoint found under", resume, flush=True)
 
     state, priors = create_train_state(cfg, device, seed)
     if basenet:
         scheme, loaded, skipped = load_basenet(state.model, basenet)
-        print("basenet import ({}): {} loaded, {} skipped".format(
+        say("basenet import ({}): {} loaded, {} skipped".format(
             scheme, len(loaded), len(skipped)), flush=True)
     if resume:
         Checkpointer(resume).restore(state)
-        print("resumed at step", state.step, flush=True)
+        say("resumed at step", state.step, flush=True)
+    parallel.broadcast_state(state.model)
     step_fn = make_train_step(priors, cfg)
     eval_fn = make_eval_step(state.model, priors, cfg)
 
@@ -123,6 +148,8 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     if len(train_loader) == 0:
         raise ValueError("the train loader yields no batch")
     out = {"losses": [], "evals": []}
+    if not rank0:
+        tb_writer, profile_dir = None, ""
 
     start = it = state.step
     last_log_iter, last_log_time = it, time.time()
@@ -145,14 +172,14 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                 m = {k: float(v) for k, v in pending[1].items()}
                 now = time.time()
                 ips = ((pending[0] - last_log_iter)
-                       * batch["images"].shape[0]
+                       * batch["images"].shape[0] * parallel.world()
                        / max(now - last_log_time, 1e-9))
                 last_log_iter, last_log_time = pending[0], now
                 out["losses"].append({"step": pending[0], **m, "ips": ips})
-                print("iter {} | loss {:.4f} (loc {:.4f} conf {:.4f}) | "
-                      "{:.1f} img/s".format(pending[0], m["loss"],
-                                            m["loss_loc"], m["loss_conf"],
-                                            ips), flush=True)
+                say("iter {} | loss {:.4f} (loc {:.4f} conf {:.4f}) | "
+                    "{:.1f} img/s".format(pending[0], m["loss"],
+                                          m["loss_loc"], m["loss_conf"],
+                                          ips), flush=True)
                 if tb_writer is not None:
                     tb_writer.add_scalars("train", {
                         "loss": m["loss"], "loc_loss": m["loss_loc"],
@@ -171,13 +198,13 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                 paused = time.time()
                 if save:
                     ckpt.save(it, state)
-                    print("saved checkpoint at", it, flush=True)
+                    say("saved checkpoint at", it, flush=True)
                 if validate:
                     _, maps = eval_solver.validate(eval_fn)
                     dropped = eval_solver.last_timing["dropped_dets"]
                     out["evals"].append({"step": it, "mAP": maps[0],
                                          "maps": maps, "dropped": dropped})
-                    print("iter {} | mAP {}".format(it, maps), flush=True)
+                    say("iter {} | mAP {}".format(it, maps), flush=True)
                     if tb_writer is not None:
                         tb_writer.add_scalar("mAP/mAP@0.5", maps[0], it)
                         if len(maps) > 1:
@@ -188,7 +215,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
 
     ckpt.save(max_iter, state, force=True)
     out.update(step=it, state=state, ckpt_steps=ckpt.all_steps())
-    print("done at iter", it, flush=True)
+    say("done at iter", it, flush=True)
     return out
 
 
@@ -212,13 +239,37 @@ def parse_args(argv=None):
                    help="override TRAIN.MAX_ITER")
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of steps 11-20 there")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="with --multihost, cuda is cuda:LOCAL_RANK")
+    p.add_argument("--multihost", action="store_true",
+                   help="data parallelism over the processes that python -m "
+                        "torch.distributed.run starts, one a card: each "
+                        "loads its slice of the data")
     return p.parse_args(argv)
+
+
+@contextlib.contextmanager
+def distributed(args):
+    """With ``args.multihost``: join ``torch.distributed.run``'s process
+    group (``args.device`` becomes this rank's card), print ``process
+    r/w``, and leave the group when the block ends. Without it:
+    nothing."""
+    if not args.multihost:
+        yield
+        return
+    args.device = str(parallel.init_distributed(args.device))
+    print("process {}/{}".format(parallel.rank(), parallel.world()),
+          flush=True)
+    try:
+        yield
+    finally:
+        parallel.shutdown()
 
 
 def setup(args):
     """(cfg, out_dir, log_dir) of the run ``args`` ask for; the caller may
-    change the cfg (a dataset directory, say) before :func:`run`."""
+    change the cfg (a dataset directory, say) before :func:`run`. In a
+    process group (:func:`distributed`) the cfg's mesh must fit it."""
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
@@ -226,10 +277,11 @@ def setup(args):
     cfg = load_cfg(resolve_cfg_args(args))
     if args.max_iter:
         cfg.TRAIN.MAX_ITER = args.max_iter
+    parallel.make_mesh(cfg, args.device)
     out = args.output_dir or os.path.join(cfg.GENERAL.WEIGHTS_ROOT,
                                           args.job_group, args.cfg_name)
-    if os.path.isdir(out) and os.listdir(out) and not (
-            args.resume or args.auto_resume):
+    if os.path.isdir(out) and os.listdir(out) and parallel.is_main() \
+            and not (args.resume or args.auto_resume):
         print("WARNING: output dir {} already exists: checkpoints and logs "
               "may be overwritten".format(out))
     os.makedirs(out, exist_ok=True)
@@ -257,8 +309,9 @@ def run(args, cfg, out_dir, log_dir) -> dict:
             "LOG.{} needs utils/visualize.py or the PR curves, which are "
             "not ported to odtpu_torch yet".format(", LOG.".join(shown)))
     # the run's configuration, archived up front so a crash leaves it
-    with open(os.path.join(out_dir, "config_used.json"), "w") as f:
-        json.dump(_plain(cfg), f, indent=1)
+    if parallel.is_main():
+        with open(os.path.join(out_dir, "config_used.json"), "w") as f:
+            json.dump(_plain(cfg), f, indent=1)
     train_loader = dataset_factory("train", cfg)
     solver = eval_solver_factory(dataset_factory("eval", cfg), cfg,
                                  os.path.join(out_dir, "eval"))
@@ -274,7 +327,8 @@ def run(args, cfg, out_dir, log_dir) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    return run(args, *setup(args))
+    with distributed(args):
+        return run(args, *setup(args))
 
 
 if __name__ == "__main__":

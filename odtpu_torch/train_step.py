@@ -36,6 +36,21 @@ device:
   statistics move once, in the first forward
   (``models.common.recomputing``).
 
+In a process group (``parallel``) the step is ``odtpu``'s step on the
+global batch, the concatenation of the ranks' batches in rank order:
+
+- the photometric parameters are drawn for the global batch and each
+  rank takes its block of rows (:meth:`TrainStep.aug_params`);
+- every ``max(num_pos, 1)`` is the global count (the positives summed
+  over the ranks), so each rank's loss is its share of the global loss,
+  and the reported metrics are the global ones on every rank;
+- train-mode batch norm takes the global batch's statistics
+  (``models.common.batch_norm``);
+- the gradients are summed over the ranks by one all-reduce of a flat
+  buffer (:meth:`TrainStep.backward`) before the clip and the update,
+  which then run as in one process. Hard-negative mining stays per
+  image.
+
 Training covers every family of the zoo.
 """
 
@@ -49,6 +64,7 @@ import torch
 from torch import Tensor, nn
 from torch.utils.checkpoint import checkpoint
 
+from . import parallel
 from .data.device_aug import draw_params, preprocess_train_batch
 from .layers.losses import multibox_loss, refinedet_loss, repulsion_loss
 from .models import compute_dtype, model_factory
@@ -160,13 +176,17 @@ class TrainStep:
                                                torch.float32)
         self.clip = float(cfg.TRAIN.OPTIMIZER.CLIP_GRAD_NORM or 0.0)
         self.sched = lr_schedule(cfg)
+        # in a process group: the ranks' collectives (identities at world 1)
+        self.sync = parallel.initialized()
 
     def aug_params(self, batch: int, step: int) -> dict:
-        """The photometric parameters of update ``step``, from a generator
-        on the device seeded by (17, step)."""
+        """The photometric parameters of update ``step`` for this rank's
+        ``batch`` images: drawn for the global batch from a generator on
+        the device seeded by (17, step), and this rank's rows of them."""
         g = torch.Generator(device=self.device)
         g.manual_seed((17 << 32) + int(step))
-        return draw_params(batch, g)
+        return parallel.local_rows(draw_params(batch * parallel.world(), g),
+                                   batch)
 
     def augment(self, images: Tensor, step: int,
                 aug_params: dict | None = None) -> Tensor:
@@ -199,29 +219,35 @@ class TrainStep:
     def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
              step: int) -> dict:
         """The metrics of :meth:`forward`'s ``outputs`` at update ``step``
-        (the count of updates already made)."""
+        (the count of updates already made). In a process group the
+        losses are this rank's sums over the global counts, and
+        ``num_pos`` is the global count."""
         if self.refinedet:
             r = refinedet_loss(*outputs, self.priors, boxes, labels,
                                self.variances, self.overlap, self.negpos,
                                use_refined=step >= self.odm_warm)
             loss_l = loss_c = 0.0
             for part in r:
-                n = torch.clamp(part.num_pos, min=1).float()
+                n = torch.clamp(parallel.global_sum(part.num_pos),
+                                min=1).float()
                 loss_l = loss_l + self.loc_w * part.loss_loc_sum / n
                 loss_c = loss_c + part.loss_conf_sum / n
             return {"loss": loss_l + loss_c, "loss_loc": loss_l,
-                    "loss_conf": loss_c, "num_pos": r.odm.num_pos}
+                    "loss_conf": loss_c,
+                    "num_pos": parallel.global_sum(r.odm.num_pos)}
         out = multibox_loss(*outputs, self.priors, boxes, labels,
                             self.variances, self.overlap, self.negpos)
-        n = torch.clamp(out.num_pos, min=1).float()
+        num_pos = parallel.global_sum(out.num_pos)
+        n = torch.clamp(num_pos, min=1).float()
         loss_l = out.loss_loc_sum / n
         loss_c = out.loss_conf_sum / n
         metrics = {"loss": self.loc_w * loss_l + loss_c, "loss_loc": loss_l,
-                   "loss_conf": loss_c, "num_pos": out.num_pos}
+                   "loss_conf": loss_c, "num_pos": num_pos}
         if self.rep_w > 0:
             rep_sum, rep_n = repulsion_loss(outputs[0], self.priors, boxes,
                                             labels, self.variances)
-            loss_rep = rep_sum / torch.clamp(rep_n, min=1).float()
+            loss_rep = rep_sum / torch.clamp(parallel.global_sum(rep_n),
+                                             min=1).float()
             metrics["loss"] = metrics["loss"] + self.rep_w * loss_rep
             metrics["loss_repul"] = loss_rep
         return metrics
@@ -231,10 +257,13 @@ class TrainStep:
         metrics["loss"].backward()
         # a weight the loss does not reach (DRN_SSD's last stages) gets a
         # zero gradient, so that it decays as optax decays it
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.sync:
+            parallel.all_reduce_grads(params)
 
     def update(self, state: TrainState) -> None:
         if self.clip > 0:
@@ -255,7 +284,18 @@ class TrainStep:
                             state.step)
         self.backward(state, metrics)
         self.update(state)
-        return {k: v.detach() for k, v in metrics.items()}
+        return self.report(metrics)
+
+    def report(self, metrics: dict) -> dict:
+        """:meth:`loss`'s metrics, detached; in a process group the
+        losses are summed over the ranks (each rank's is its share of the
+        global loss), so every rank reports the global ones."""
+        out = {k: v.detach() for k, v in metrics.items()}
+        if self.sync:
+            keys = [k for k in out if k != "num_pos"]
+            summed = parallel.global_sum(torch.stack([out[k] for k in keys]))
+            out.update(zip(keys, summed.unbind()))
+        return out
 
 
 def make_train_step(priors: Tensor, cfg) -> TrainStep:

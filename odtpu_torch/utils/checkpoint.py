@@ -16,7 +16,9 @@ are ``running_mean`` and ``running_var``.
 :class:`Checkpointer` is the counterpart of ``odtpu``'s orbax
 ``Checkpointer``: ``torch.save`` of the model, the optimizer and the
 step, one file per step under the run's ``ckpt/`` directory, the newest
-``max_to_keep`` kept.
+``max_to_keep`` kept. In a process group rank 0 writes and every rank
+waits for it; every rank restores (the train loop then broadcasts rank
+0's weights).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .. import parallel
 
 BATCH_STATS_PREFIX = "__batch_stats__/"
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale"}
@@ -230,8 +234,13 @@ class Checkpointer:
 
     def save(self, step: int, state, force: bool = False) -> bool:
         """Write ``state`` as step ``step``; a step already on disk is
-        kept unless ``force``. Returns whether it wrote."""
-        step = int(step)
+        kept unless ``force``. Returns whether it wrote. In a process
+        group only rank 0 writes, and every rank returns once it has."""
+        wrote = parallel.is_main() and self._write(int(step), state, force)
+        parallel.barrier()
+        return wrote
+
+    def _write(self, step: int, state, force: bool) -> bool:
         path = self.path(step)
         if path.is_file() and not force:
             return False

@@ -57,8 +57,13 @@ def _defaults() -> AttrDict:
     # serving compute of the eval step: "" (off) or "int8", dynamic
     # per-image activation and per-channel weight quantization onto the
     # s8 tensor cores (ops/quant.py); training is unaffected, and any
-    # float32 checkpoint serves int8 as it is
-    C.TPU = AttrDict(COMPUTE_DTYPE="bfloat16", REMAT=False, QUANT="")
+    # float32 checkpoint serves int8 as it is. MESH_* are odtpu's mesh
+    # axes: MESH_DATA is the count of data-parallel processes (-1: every
+    # process of the run, ``parallel.make_mesh``); the tensor-parallel
+    # MESH_MODEL and the H-sharding MESH_SPATIAL are not ported and must
+    # stay 1 (``check_mesh``)
+    C.TPU = AttrDict(COMPUTE_DTYPE="bfloat16", REMAT=False, QUANT="",
+                     MESH_DATA=-1, MESH_MODEL=1, MESH_SPATIAL=1)
 
     C.DATASET = AttrDict()
     C.DATASET.NAME = "VOC0712"
@@ -147,7 +152,21 @@ def update_cfg(c: AttrDict) -> AttrDict:
             osp.join(c.GENERAL.ROOT_DIR, "data", c.DATASET.SUB_DIR))
     c.MODEL.NUM_CLASSES = c.DATASET.NUM_CLASSES + 1  # + background
     c.MODEL.IMAGE_SIZE = tuple(c.DATASET.IMAGE_SIZE)
+    check_mesh(c)
     return c
+
+
+def check_mesh(c: AttrDict) -> None:
+    """Refuse the mesh axes the port does not have: ``TPU.MESH_MODEL``
+    (output-channel tensor parallelism) and ``TPU.MESH_SPATIAL`` (images
+    sharded along H) other than 1 (-1 and None mean 1, as in odtpu)."""
+    for key in ("MESH_MODEL", "MESH_SPATIAL"):
+        value = c.TPU[key]
+        if value not in (None, -1, 1):
+            raise NotImplementedError(
+                "TPU.{} = {}: odtpu_torch runs data parallelism only; "
+                "tensor-parallel and spatial meshes are not ported yet "
+                "(ROADMAP.md, Queue 1)".format(key, value))
 
 
 # SSD512's prior spec, shared by its VOC, COCO and RFBNet512 ymls

@@ -10,14 +10,17 @@ need ``utils/visualize.py``, which is not ported. Where
 
 from __future__ import annotations
 
+from .. import parallel
+
 
 class TBWriter:
     """Scalars to TensorBoard event files under ``log_dir`` (none when
-    ``log_dir`` is empty or TensorBoard is missing)."""
+    ``log_dir`` is empty or TensorBoard is missing, and none on a rank
+    other than 0 of a process group)."""
 
     def __init__(self, log_dir):
         self.writer = None
-        if log_dir:
+        if log_dir and parallel.is_main():
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:

@@ -28,6 +28,7 @@ from odtpu_torch.utils import logging as tlogging
 from odtpu_torch.utils.config import load_cfg, resolve_cfg_args
 
 from synth import make_voc
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -44,6 +44,7 @@ from odtpu_torch.utils.config import default_cfg
 
 from synth import make_voc
 from test_torch_model import FLAGSHIP
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 # the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
 # threads per worker only contend with the others (and with JAX)

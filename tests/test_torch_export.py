@@ -50,6 +50,7 @@ from odtpu_torch.utils import config
 from odtpu_torch.utils.config import default_cfg
 
 from test_export import _tiny_cfg as jtiny_cfg
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -7,6 +7,7 @@ import without them, build their kernels with plain ``nvcc``, and fail
 loudly without a card.
 """
 
+import ast
 import os
 import shutil
 import stat
@@ -59,6 +60,10 @@ def test_port_and_chip_smoke_import_without_refused_modules():
                        "odtpu_torch.export", "odtpu_torch.tools.ckpt_to_npz",
                        "odtpu_torch.tools.convert_torch_weights"):
             assert module in names, module
+        # data parallelism across processes
+        for module in ("odtpu_torch.parallel", "odtpu_torch.parallel.mesh",
+                       "odtpu_torch.parallel.multihost"):
+            assert module in names, module
         import chip_smoke
         leaked = [m for m in sys.modules
                   if any(m == r or m.startswith(r + ".") for r in REFUSED)]
@@ -67,7 +72,34 @@ def test_port_and_chip_smoke_import_without_refused_modules():
     """).format(refused=_REFUSED)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 36
+    assert int(proc.stdout.split()[0]) >= 39
+
+
+def _imported(path):
+    """Top-level names of the modules a source file imports, at any depth
+    of its code (a function's own imports too); relative imports are
+    left out."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.add(node.module)
+    return names
+
+
+def test_no_source_of_the_port_imports_odtpu_or_jax():
+    """No file of the port, ``chip_smoke.py`` or the two-process test's
+    worker names ``odtpu`` or JAX in an import, even one that a run never
+    reaches."""
+    files = sorted((ROOT / "odtpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"]
+    assert len(files) >= 50
+    for path in files:
+        bad = [n for n in _imported(path)
+               if n.split(".")[0] in ("odtpu", "jax", "jaxlib", "flax",
+                                      "optax")]
+        assert not bad, (path, bad)
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():

@@ -37,6 +37,7 @@ from odtpu_torch.utils.checkpoint import from_odtpu_params, load_odtpu_npz
 from odtpu_torch.utils.config import default_cfg
 
 from test_backbone_import import GOLDEN as VGG_GOLDEN, make_weights
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 # the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
 # threads per worker only contend with the others (and with JAX)

@@ -50,6 +50,7 @@ import torch_family_parity as fp
 from test_torch_model import FLAGSHIP, _flagship_image
 from synth import make_voc
 from test_torch_train_families import _tiny_voc_loaders, tiny_cfg
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 torch.set_num_threads(2)
 

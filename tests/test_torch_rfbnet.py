@@ -17,6 +17,7 @@ from odtpu_torch.utils.checkpoint import (load_odtpu_npz, load_strict,
                                           to_odtpu_params)
 
 import torch_family_parity as fp
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 # trained RFBNet300 (tests/synth.py images): 306 float16 tensors, 100 of
 # them batch statistics

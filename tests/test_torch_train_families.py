@@ -64,6 +64,7 @@ from odtpu_torch.utils.config import CFGS, default_cfg, load_cfg
 import torch_family_parity as fp
 from synth import make_voc
 from test_torch_model import FLAGSHIP
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 # tests/test_family_train.py's tiny FSSD pyramid: 8/4/2/1 from 64x64
 TINY_PYRAMID = ((128, 1, 1), (128, 2, 1), (128, 2, 1), (128, 2, 1))

@@ -43,6 +43,7 @@ from odtpu_torch.utils.config import default_cfg
 
 import torch_family_parity as fp
 from test_torch_train_families import narrow_batch, tiny_cfg
+from torch_tmp import drop_module_tmp  # noqa: F401
 
 torch.set_num_threads(2)
 
