@@ -182,6 +182,36 @@ Phases, each printing one JSON line:
    with it at world 1 on NCCL (cuDNN deterministic): equal losses and
    mAP, ms a step of both, and the all-reduce of SSD300's float32
    gradients in ms.
+19. visualize: (a) the eval-mode norm's backward with respect to x, the
+   entry ``bn_eval_backward_dx`` of ``csrc/batch_norm.cu``, against
+   ``bn_eval_backward_plain`` on RFBNet512's and RFBNet300's largest norm
+   inputs (bf16 channels-last), float32 and float64 cases: bit for bit,
+   two launches bit-equal; timed on the first beside the plain version,
+   autograd's backward of ``F.batch_norm`` with respect to x and the
+   bound. (b) ``train_debug.run`` on RFBNet300 at full width (bf16,
+   seeded, a VOC tree of 288 + 32 PPM images) with
+   ``LOG.SHOW_SALIENCY``: one step with a finite loss, six non-constant
+   uint8 saliency images, ``bn_eval`` once a norm for the saliency's
+   forward and each eval batch, the dx entry once for every norm
+   upstream of each source (counted in the autograd graph), no parameter
+   gradient, ``nms_rows`` once an eval batch; the same weights' input
+   gradients: float64 within 1e-9 relative L2 of the CPU's per source,
+   float32 (TF32 off) through the kernel bit-equal to the card's own
+   plain path (cuDNN deterministic), and, printed with the ReLU sign
+   flips between the two forwards, float32 against the CPU's with cuDNN
+   on and off and the CPU's against the CPU's without oneDNN, as for the
+   seeded served weights on the same image and on noise.
+   (c) ``train.setup``/``train.run`` of RFBNet300 at batch 32, 8 steps
+   and one validation, with ``SHOW_AUG_STEPS``, ``SHOW_ANCHOR_MAPS``,
+   ``SHOW_TEST_IMAGE`` and ``SHOW_PR_CURVE`` off and then on, into a
+   recording writer: at most 8 items dumped at every stage, one anchor
+   map a (source, slot), 4 ``eval/detections`` images whose red GT
+   outlines lie where the batch's boxes are, one PR curve a class with
+   detections, the run archived under a ``HISTORY_ROOT`` in ``build/``;
+   ms a step both ways. (d) the demos on SSD300: ``detect_img``'s rows
+   equal ``Detector``'s, its PPM changed only in green; ``live
+   --headless`` over 20 PPM frames, one ``nms_rows`` launch a frame,
+   frame 0's rows equal ``detect_img``'s, the FPS.
 Each tree goes under ``build/`` and is removed after its phase. Then each
 phase's seconds, the ``kernels`` line (the host sampler under ``host``,
 the int8 GEMM under ``library``), and last ``{"ok": true, "device":
@@ -208,28 +238,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from odtpu_torch import eval_step, export, train
+from odtpu_torch import eval_step, export, train, train_debug
 from odtpu_torch import serve as http_serve
 from odtpu_torch.data import augment, dataset_factory, native
 from odtpu_torch.data.device_aug import draw_params
-from odtpu_torch.data.image import imdecode, write_ppm
+from odtpu_torch.data.image import imdecode, imread, write_ppm
 from odtpu_torch.data.loader import DetLoader, NetworkInput
 from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
+from odtpu_torch.demo import detect_img, live
 from odtpu_torch.eval import cli
 from odtpu_torch.eval.evaluator import EvalVOC, eval_solver_factory
 from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
 from odtpu_torch.layers.losses import repulsion_loss
-from odtpu_torch.models import create_model, probe_layer_dims
+from odtpu_torch.models import model_factory, probe_layer_dims
 from odtpu_torch.models.common import BatchNorm2d, Conv
 from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import batch_norm, build, nms_kernel
-from odtpu_torch.ops.priors import prior_factory
+from odtpu_torch.ops.priors import PriorBoxSSD, prior_factory
+from odtpu_torch.tools import get_flops
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
-from odtpu_torch.utils.checkpoint import Checkpointer, to_odtpu_params
+from odtpu_torch.utils import visualize
+from odtpu_torch.utils.checkpoint import (Checkpointer, load_strict,
+                                          to_odtpu_params)
 from odtpu_torch.utils.config import default_cfg, load_cfg
+from odtpu_torch.utils.logging import TBWriter
 
 # H100 SXM peaks (NVIDIA H100 Tensor Core GPU data sheet): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores, and dense int8 tensor-core
@@ -597,7 +632,7 @@ def plain_rows(step, *outputs):
 def reset_counts():
     nms_kernel.LAUNCHES = nms_kernel.MASK_LAUNCHES = 0
     nms_kernel.ROWS_LAUNCHES = 0
-    batch_norm.LAUNCHES = 0
+    reset_norm_counts()
 
 
 def norm_calls(det, images):
@@ -865,26 +900,13 @@ def forward_gap(name, weights, images):
 
 
 def conv_flops(cfg):
-    """Forward FLOPs of one image through ``cfg``'s convs, counted from a
-    forward on the ``meta`` device: 2 x kh x kw x Cin x Cout x Hout x Wout
-    per conv (get_flops.py's multiply-adds, doubled; biases, norms and
-    upsampling left out)."""
-    total = 0
-
-    def count(module, inputs, output):
-        nonlocal total
-        w = module.conv.weight
-        total += 2 * output[0].numel() * w[0].numel()
-
-    with torch.device("meta"):
-        model, _ = create_model(cfg)
-        model.eval()
-        hooks = [m.register_forward_hook(count) for m in model.modules()
-                 if isinstance(m, Conv)]
-        model(torch.empty(1, *cfg.MODEL.IMAGE_SIZE, 3))
-    for h in hooks:
-        h.remove()
-    return total
+    """Forward FLOPs of one image through ``cfg``'s convs:
+    2 x kh x kw x Cin x Cout x Hout x Wout per conv (get_flops.py's
+    multiply-adds, doubled; biases, norms and upsampling left out), from
+    ``tools.get_flops.conv_shapes``'s forward on the ``meta`` device."""
+    return sum(2 * kh * kw * cin * cout * oh * ow
+               for _, (kh, kw, cin, cout), (oh, ow), _ in
+               get_flops.conv_shapes(cfg))
 
 
 def serve_family(name, warmup=3, batches=10):
@@ -1592,10 +1614,10 @@ class WatchedSolver:
     def last_timing(self):
         return self.solver.last_timing
 
-    def validate(self, eval_fn):
+    def validate(self, eval_fn, tb_writer=None):
         model = eval_fn.model
         before, mode = running_stats(model), model.training
-        out = self.solver.validate(eval_fn)
+        out = self.solver.validate(eval_fn, tb_writer)
         after = running_stats(model)
         self.seen.append({"stats_equal": all(torch.equal(v, after[k])
                                              for k, v in before.items()),
@@ -2068,6 +2090,7 @@ def phase_cli(n_train=1024, n_test=64, steps=20):
                                  "--profile_dir", prof])
         cfg, out_dir, _ = train.setup(args)
         cfg.DATASET.DATASET_DIR = root
+        cfg.GENERAL.HISTORY_ROOT = os.path.join(work, "history")
         cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
         cfg.TRAIN.SAVE_ITER = steps // 2
         cfg.TRAIN.EVAL_ITER = steps
@@ -2783,6 +2806,516 @@ def phase_extras():
     return result
 
 
+# --- visualize: the norm's backward, saliency, the LOG.SHOW_* images, the
+# demos (odtpu_torch.train_debug, utils.visualize, demo) ---
+
+class Recorder:
+    """What a ``SummaryWriter`` would be handed, for ``TBWriter.writer``:
+    the card's machine has no tensorboard (the tests use it too)."""
+
+    def __init__(self):
+        self.images, self.histograms, self.curves = [], [], []
+
+    def add_image(self, tag, img, step, dataformats="HWC"):
+        assert dataformats == "HWC"
+        self.images.append((tag, np.array(img), int(step)))
+
+    def add_histogram(self, tag, values, step):
+        self.histograms.append((tag, np.array(values), int(step)))
+
+    def add_pr_curve_raw(self, tag, **kw):
+        self.curves.append((tag, kw))
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
+
+    def tags(self):
+        return [t for t, _, _ in self.images]
+
+
+def recording_writer(writer_cls=TBWriter):
+    """A ``writer_cls`` (the port's ``TBWriter``, or one of the same
+    shape) writing to a :class:`Recorder`."""
+    tb = writer_cls("")
+    tb.writer = Recorder()
+    return tb
+
+
+def reset_norm_counts():
+    batch_norm.LAUNCHES = batch_norm.DX_LAUNCHES = 0
+
+
+def norm_counts():
+    return {"bn_eval": batch_norm.LAUNCHES,
+            "bn_eval_backward_dx": batch_norm.DX_LAUNCHES}
+
+
+# the backward's cases: each family's largest norm inputs in the serving
+# layout (bf16, channels-last), float32 NCHW-contiguous (with H*W a
+# multiple of 8 and not), float64 both ways; the first is timed
+BN_BACKWARD_CASES = (
+    ("rfbnet512", (32, 512, 64, 64), torch.bfloat16, True),
+    ("rfbnet300", (32, 512, 38, 38), torch.bfloat16, True),
+    ("rfbnet300", (32, 512, 38, 38), torch.float32, False),
+    ("rfbnet512", (32, 512, 64, 64), torch.float32, False),
+    ("float64", (8, 256, 19, 19), torch.float64, False),
+    ("float64", (8, 256, 19, 19), torch.float64, True))
+
+
+def bn_backward_inputs(shape, dtype, channels_last, seed=0):
+    """Seeded dy (in ``dtype`` and the layout) and mul."""
+    g = torch.Generator().manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    dy = torch.randn(*shape, generator=g).to(dtype).cuda().contiguous(
+        memory_format=fmt)
+    mul = (torch.rand(shape[1], generator=g) + 0.5).to(
+        batch_norm.wide_dtype(dtype)).cuda()
+    return dy, mul
+
+
+def entry_bound(nbytes, ops):
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_F32_FLOP_PER_S
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def check_bn_backward(label, shape, dtype, channels_last, timed=False,
+                      iters=20):
+    """The backward's dx entry against ``bn_eval_backward_plain`` on
+    seeded inputs: bit for bit, a second launch bit-equal. ``timed``: its
+    ms (launched from Python), device_ms (a CUDA graph), its plain
+    version's, autograd's backward of ``F.batch_norm(training=False)``
+    with respect to x alone, and its bound."""
+    dy, mul = bn_backward_inputs(shape, dtype, channels_last)
+    dx = batch_norm.bn_eval_backward_dx_cuda(dy, mul)
+    dx2 = batch_norm.bn_eval_backward_dx_cuda(dy, mul)
+    want = batch_norm.bn_eval_backward_plain(dy, mul)
+    torch.cuda.synchronize()
+    case = "{} {} {} {}".format(label, list(shape), str(dtype)[6:],
+                                "channels-last" if channels_last
+                                else "contiguous")
+    if not (same_bits(dx, want) and dx.stride() == want.stride()):
+        raise AssertionError("bn backward dx != plain on {}: {} of {} "
+                             "differ".format(case, int((dx != want).sum()),
+                                             dx.numel()))
+    if not same_bits(dx, dx2):
+        raise AssertionError("bn backward: two launches differ on " + case)
+    out = {"case": case, "dx_exact": True, "deterministic": True}
+    if not timed:
+        return out
+    n, c = dy.numel(), shape[1]
+
+    def dx_call():
+        return batch_norm.bn_eval_backward_dx_cuda(dy, mul)
+
+    # cuDNN's (or ATen's) eval-mode norm backward on the same input, with
+    # respect to x alone
+    xr = torch.zeros_like(dy).requires_grad_()
+    ones = torch.ones(c, device=dy.device)
+    y = F.batch_norm(xr, torch.zeros_like(ones), ones, ones, ones * 0,
+                     False, 0.0, 1e-5)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        y, xr, dy, retain_graph=True), iters)
+    out.update({"ms": cuda_ms(dx_call, iters),
+                "device_ms": graph_ms(dx_call, iters),
+                "plain_ms": cuda_ms(lambda: batch_norm.bn_eval_backward_plain(
+                    dy, mul), iters),
+                "library_ms": library_ms, "max_abs_err": 0.0,
+                **entry_bound(2 * n * dy.element_size()
+                              + c * mul.element_size(), n)})
+    return out
+
+
+def bn_nodes_upstream(t):
+    """``BnEvalFn`` backward nodes in the autograd graph of ``t``: the
+    eval-mode norms that its backward runs."""
+    seen, stack, n = set(), [t.grad_fn], 0
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        n += "BnEvalFn" in f.name()
+        stack.extend(nf for nf, _ in f.next_functions)
+    return n
+
+
+def saliency_norms(model, image):
+    """The norms upstream of each source of ``model``'s eval-mode forward
+    on ``image`` (NHWC float32 on the card)."""
+    with train_debug.input_gradient_mode(model):
+        x = image.detach().clone().requires_grad_()
+        return [bn_nodes_upstream(s)
+                for s in train_debug.source_fn(model)(x)]
+
+
+def saliency_run(dtype, weights, image, device, plain_dx=False,
+                 cudnn=True, deterministic=False, mkldnn=True):
+    """RFBNet300's six raw input gradients on ``device`` in ``dtype``
+    (float32: TF32 off) from ``weights`` on ``image``, and the Conv ReLU
+    masks of its forward. ``plain_dx``: each norm's backward on the card
+    by ``bn_eval_backward_plain`` in place of the kernel's dx entry;
+    ``cudnn``: off runs the convs by ATen's own CUDA code;
+    ``deterministic``: cuDNN's deterministic algorithms only; ``mkldnn``:
+    off runs the CPU's float32 convs by ATen's own code."""
+    cfg = load_cfg("rfbnet300_vgg16_voc")
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    model, _, _ = model_factory("eval", cfg, device)
+    load_strict(model, weights)
+    if dtype == "float64":
+        model.double()
+    if device == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    masks = relu_masks(model)
+    kernel_dx = batch_norm.bn_eval_backward_dx
+    if plain_dx:
+        batch_norm.bn_eval_backward_dx = batch_norm.bn_eval_backward_plain
+    try:
+        with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                        deterministic=deterministic,
+                                        allow_tf32=False), \
+                torch.backends.mkldnn.flags(enabled=mkldnn):
+            grads = train_debug.saliency(model, image.astype(dtype), cfg,
+                                         recording_writer())
+    finally:
+        batch_norm.bn_eval_backward_dx = kernel_dx
+    return grads, masks
+
+
+def grads_apart(a, b):
+    """Relative L2 per source between two :func:`saliency_run` results,
+    and the Conv ReLU outputs whose sign differs between their
+    forwards."""
+    return {"rel_l2": [rel_l2(torch.from_numpy(x), torch.from_numpy(y))
+                       for x, y in zip(a[0], b[0])],
+            "relu_flips": relu_flips(a[1], b[1])}
+
+
+def saliency_parity(weights, image, tol=1e-9):
+    """RFBNet300's input gradients from the debug run's ``weights`` on its
+    ``image``: the card's float64 ones within ``tol`` of the CPU's; the
+    card's float32 ones through the kernel bit-equal to the card's own
+    plain path (cuDNN's deterministic algorithms in both: only the norms'
+    backward differs, and its dx is bit-equal); printed: the card's
+    float32 ones against the CPU's with cuDNN on and off, and the CPU's
+    against the CPU's without oneDNN (mkldnn), as for the seeded served
+    weights (``infer.random_state_dict``) on the same image and on
+    seeded noise. On images with flat boxes any two float32 conv
+    implementations, the CPU's two among them, order the near-equal
+    values of many max-pool windows otherwise and send their gradient
+    elsewhere; float64 orders them alike."""
+    out = {"float64": grads_apart(saliency_run("float64", weights, image,
+                                               "cuda"),
+                                  saliency_run("float64", weights, image,
+                                               "cpu"))}
+    out["float32_kernel_vs_plain_on_card"] = grads_apart(*(
+        saliency_run("float32", weights, image, "cuda", plain_dx=plain,
+                     deterministic=True) for plain in (False, True)))
+    served = random_state_dict(load_cfg("rfbnet300_vgg16_voc"))
+    noise = np.random.RandomState(3).uniform(
+        -100, 100, image.shape).astype(np.float32)
+    for label, w, img in (("", weights, image),
+                          ("_served_weights", served, image),
+                          ("_served_weights_noise_image", served, noise)):
+        cpu = saliency_run("float32", w, img, "cpu")
+        for cudnn in (True, False):
+            out["float32{}{}".format(label, "" if cudnn else "_cudnn_off")] \
+                = grads_apart(saliency_run("float32", w, img, "cuda",
+                                           cudnn=cudnn), cpu)
+        out["float32{}_cpu_vs_cpu_without_mkldnn".format(label)] = \
+            grads_apart(cpu, saliency_run("float32", w, img, "cpu",
+                                          mkldnn=False))
+    errs = out["float64"]["rel_l2"]
+    if len(errs) != 6 or not max(errs) <= tol:
+        raise AssertionError("saliency float64 card vs CPU: relative L2 {} "
+                             "> {}".format(errs, tol))
+    errs = out["float32_kernel_vs_plain_on_card"]["rel_l2"]
+    if len(errs) != 6 or any(errs):
+        raise AssertionError("saliency float32 on the card, kernel vs plain "
+                             "dx: relative L2 {}, not bit-equal".format(errs))
+    return out
+
+
+def visualize_debug(root, work):
+    """``train_debug.run`` on RFBNet300 (bf16, full width, seeded) with
+    ``LOG.SHOW_SALIENCY``: one step, six saliency images through the
+    backward entries, one eval pass through ``nms_rows``; the counts
+    against the norms each source's backward reaches; then the gradients
+    against the CPU's (:func:`saliency_parity`)."""
+    cfg = load_cfg("rfbnet300_vgg16_voc")
+    cfg.DATASET.DATASET_DIR = root
+    cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+    cfg.DATASET.TEST_SETS = (("2007", "test"),)
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+    cfg.LOG.SHOW_SALIENCY = True
+    tb = recording_writer()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_debug.run(cfg, "cuda", os.path.join(work, "debug"),
+                          tb_writer=tb)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**counts(), **norm_counts()}
+    model = out["state"].model
+    norms = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    eval_batches = -(-out["timing"]["images"]
+                     // cfg.DATASET.EVAL_BATCH_SIZE)
+    image = torch.from_numpy(out["image"]).cuda()
+    per_source = saliency_norms(model, image)
+    m = out["metrics"]
+    images = tb.writer.images
+    want = {"nms_mask": 0, "nms_rows": eval_batches,
+            "bn_eval": norms * (1 + eval_batches),
+            "bn_eval_backward_dx": sum(per_source)}
+    if not (math.isfinite(m["loss"]) and m["num_pos"] > 0):
+        raise AssertionError("train_debug step {}".format(m))
+    if len(images) != 6 or len(per_source) != 6 or not all(
+            img.dtype == np.uint8 and img.std() > 0 for _, img, _ in images):
+        raise AssertionError("saliency images {}".format(
+            [(t, img.dtype, float(img.std())) for t, img, _ in images]))
+    if launches != want or min(per_source) < 1:
+        raise AssertionError("train_debug launches {} against {} (norms "
+                             "upstream of each source {})".format(
+                                 launches, want, per_source))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_debug.saliency(model, out["image"], cfg, recording_writer())
+    torch.cuda.synchronize()
+    saliency_s = time.perf_counter() - t0
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del out, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cfg": "rfbnet300_vgg16_voc", "dtype": "bfloat16",
+            "batch": cfg.DATASET.TRAIN_BATCH_SIZE, "norms": norms,
+            "loss": m["loss"], "num_pos": m["num_pos"],
+            "saliency_images": len(images),
+            "norms_upstream_of_each_source": per_source,
+            "eval_batches": eval_batches, "launches": launches,
+            "seconds": seconds, "saliency_seconds_warm": saliency_s,
+            "grads_vs_cpu": saliency_parity(weights, image.cpu().numpy())}
+
+
+SHOW_FLAGS = ("SHOW_AUG_STEPS", "SHOW_ANCHOR_MAPS", "SHOW_TEST_IMAGE",
+              "SHOW_PR_CURVE")
+AUG_STAGES = ("0_input", "1_photometric", "2_expand", "3_crop", "4_mirror",
+              "5_resize")
+
+
+def flags_run(root, work, steps, on):
+    """``train.setup``/``train.run`` of RFBNet300 (bf16, batch 32) for
+    ``steps`` steps and one validation, with :data:`SHOW_FLAGS` on or off,
+    into a recording writer; (run, writer, launches, the validation's
+    per-class results)."""
+    args = train.parse_args(["--cfg_name", "rfbnet300_vgg16_voc",
+                             "--output_dir", os.path.join(
+                                 work, "flags_{}".format(on)),
+                             "--max_iter", str(steps)])
+    cfg, out_dir, log_dir = train.setup(args)
+    cfg.DATASET.DATASET_DIR = root
+    cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+    cfg.DATASET.TEST_SETS = (("2007", "test"),)
+    cfg.GENERAL.HISTORY_ROOT = os.path.join(work, "history")
+    cfg.TRAIN.SAVE_ITER = cfg.TRAIN.EVAL_ITER = steps
+    cfg.TRAIN.LOG_LOSS_ITER = 1
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+    for flag in SHOW_FLAGS:
+        cfg.LOG[flag] = on
+    tb = recording_writer()
+    seen, real = [], EvalVOC.evaluate_stats
+
+    def evaluate_stats(self, tb_writer=None):
+        res = real(self, tb_writer)
+        seen.append(res[0])
+        return res
+
+    EvalVOC.evaluate_stats = evaluate_stats
+    reset_counts()
+    try:
+        res = train.run(args, cfg, out_dir, log_dir, tb_writer=tb)
+    finally:
+        EvalVOC.evaluate_stats = real
+    torch.cuda.synchronize()
+    return res, tb.writer, {**counts(), **norm_counts()}, seen, cfg
+
+
+def red_gt_share(images, loader, size):
+    """For the first eval batch's first images as ``eval/detections``
+    logged them (RGB): the share of each GT box's thickness-2 outline
+    that is red (GT) or green (a detection drawn over it); the lowest."""
+    batches = iter(loader)
+    batch = next(batches)
+    batches.close()  # stops the loader's threads
+    shares = []
+    for b, (_, img, _) in enumerate(images):
+        for box, label in zip(batch["boxes"][b], batch["labels"][b]):
+            if label < 0:
+                continue
+            h, w = img.shape[:2]
+            px = np.asarray(box) * np.array([w, h, w, h])
+            p1 = (int(np.clip(px[0], 0, w - 1)), int(np.clip(px[1], 0, h - 1)))
+            p2 = (int(np.clip(px[2], 0, w - 1)), int(np.clip(px[3], 0, h - 1)))
+            mask = visualize.rectangle(np.zeros((h, w), bool), p1, p2, True,
+                                       2)
+            red = (img[mask] == (255, 0, 0)).all(-1)
+            green = (img[mask] == (0, 255, 0)).all(-1)
+            shares.append(float((red | green).mean()))
+    return min(shares), len(shares)
+
+
+def visualize_flags(root, work, steps):
+    """Every other ``LOG.SHOW_*`` flag through the train command line:
+    the images by tag, the red GT outlines where the batch's boxes are,
+    the run archived under HISTORY_ROOT, and ms a step with the flags off
+    and on."""
+    runs = {}
+    for on in (False, True):
+        res, rec, launches, seen, cfg = flags_run(root, work, steps, on)
+        # the first logged step has no window (fit's first window starts
+        # after it)
+        ms = [1e3 * BATCH / m["ips"] for m in res["losses"] if m["ips"] > 0]
+        eval_batches = -(-len(dataset_factory("eval", cfg).dataset)
+                         // cfg.DATASET.EVAL_BATCH_SIZE)
+        norms = sum(isinstance(m, BatchNorm2d)
+                    for m in res["state"].model.modules())
+        want = {"nms_mask": 0, "nms_rows": eval_batches,
+                "bn_eval": norms * eval_batches, "bn_eval_backward_dx": 0}
+        if launches != want or res["step"] != steps or not all(
+                math.isfinite(m["loss"]) for m in res["losses"]):
+            raise AssertionError("flags {}: launches {} against {}, step "
+                                 "{}".format(on, launches, want, res["step"]))
+        runs[on] = {"ms_per_step": ms, "median_ms": float(np.median(ms)),
+                    "launches": launches, "history": res["history"]}
+        if not on:
+            if rec.images or rec.curves:
+                raise AssertionError("flags off, images logged")
+            continue
+        tags = rec.tags()
+        dumps = {s: [step for t, _, step in rec.images
+                     if t == "augmentation/" + s] for s in AUG_STAGES}
+        items = sorted(set(dumps["0_input"]))
+        anchors = [t for t in tags if t.startswith("base/feature_map_")]
+        slots = sum(PriorBoxSSD(cfg).num_priors)
+        detections = [r for r in rec.images if r[0] == "eval/detections"]
+        with_dets = [cls for cls, _, prec, _ in seen[-1]
+                     if hasattr(prec, "__len__") and len(prec)]
+        share, gt_boxes = red_gt_share(detections,
+                                       dataset_factory("eval", cfg),
+                                       cfg.MODEL.IMAGE_SIZE)
+        history = sorted(os.listdir(res["history"]))
+        if not (1 <= len(items) <= 8 and items == list(range(len(items)))
+                and all(sorted(v) == items for v in dumps.values())):
+            raise AssertionError("augmentation dumps {}".format(dumps))
+        if len(anchors) != slots or len(set(anchors)) != slots:
+            raise AssertionError("{} anchor maps for {} (source, slot) "
+                                 "pairs".format(len(anchors), slots))
+        if len(detections) != 4 or [t for t, _ in rec.curves] != [
+                "pr/" + c for c in with_dets]:
+            raise AssertionError("eval images {}, curves {} for classes "
+                                 "{}".format(len(detections), rec.curves,
+                                             with_dets))
+        if not share >= 0.5:
+            raise AssertionError("GT outlines: only {:.2f} of one box's "
+                                 "outline is red or green".format(share))
+        if "rfbnet300_vgg16_voc.json" not in history:
+            raise AssertionError("history backup {}".format(history))
+        runs[on].update(dumped_items=len(items), anchor_maps=len(anchors),
+                        eval_images=len(detections), pr_curves=len(
+                            rec.curves), gt_boxes_checked=gt_boxes,
+                        lowest_gt_outline_share=share, history_files=history)
+    return {"cfg": "rfbnet300_vgg16_voc", "dtype": "bfloat16", "batch": BATCH,
+            "steps": steps, "off": runs[False], "on": runs[True]}
+
+
+def visualize_demos(work, n_frames=20):
+    """The demos on SSD300 (seeded served weights): ``detect_img`` on one
+    PPM, its rows equal to ``Detector``'s on that image and its output
+    changed only in green; ``live --headless`` over ``n_frames`` PPM
+    frames given as a pattern, one ``nms_rows`` launch a frame, frame 0's
+    rows equal to ``detect_img``'s."""
+    frames = os.path.join(work, "frames")
+    os.makedirs(frames)
+    rng = np.random.RandomState(9)
+    for i in range(n_frames):
+        write_ppm(os.path.join(frames, "{:04d}.ppm".format(i)),
+                  rng.randint(0, 256, (375, 500, 3)).astype(np.uint8))
+    first, out = os.path.join(frames, "0000.ppm"), os.path.join(work,
+                                                               "out.ppm")
+    reset_counts()
+    got = detect_img.main(["--image", first, "--out", out, "--conf", "0.05"])
+    image_launches = counts()
+    cfg = load_cfg()
+    det = Detector(cfg, random_state_dict(cfg, seed=0))
+    src = imread(first)
+    want = det(augment.resize_u8(src, cfg.MODEL.IMAGE_SIZE)[None])["rows"]
+    drawn = imread(out)
+    changed = np.any(drawn != src, axis=-1)
+    if not np.array_equal(got["rows"], want[0].cpu().numpy()):
+        raise AssertionError("detect_img rows != Detector's")
+    if got["kept"] < 1 or not (drawn[changed] == (0, 255, 0)).all():
+        raise AssertionError("detect_img drew {} boxes; changed pixels not "
+                             "all green".format(got["kept"]))
+    reset_counts()
+    stream = live.main(["--source", os.path.join(frames, "%04d.ppm"),
+                        "--headless"])
+    live_launches = counts()
+    if stream["frames"] != n_frames or live_launches != {
+            "nms_mask": 0, "nms_rows": n_frames} or image_launches != {
+            "nms_mask": 0, "nms_rows": 1}:
+        raise AssertionError("live: {} frames, launches {} (detect_img "
+                             "{})".format(stream["frames"], live_launches,
+                                          image_launches))
+    if not np.array_equal(stream["first_rows"], got["rows"]):
+        raise AssertionError("live frame 0 rows != detect_img's")
+    return {"cfg": "ssd_vgg16_voc", "detect_img_kept": got["kept"],
+            "changed_pixels": int(changed.sum()),
+            "launches": {"detect_img": image_launches,
+                         "live": live_launches},
+            "frames": stream["frames"], "live_fps": stream["fps"]}
+
+
+def phase_visualize(n_train=288, n_test=32, steps=8):
+    """(a) the eval-mode norm's backward entries against their plain
+    version, (b) the debug entry with saliency on RFBNet300, (c) every
+    other ``LOG.SHOW_*`` flag through the train command line, (d) the
+    demos; on a seeded VOC tree of 300x300 PPM images under ``build/``,
+    9 train batches: the flags' 8 steps stay inside one epoch, where the
+    loader does not restart its threads."""
+    t0 = time.perf_counter()
+    cases = [check_bn_backward(*case, timed=i == 0)
+             for i, case in enumerate(BN_BACKWARD_CASES)]
+    torch.cuda.empty_cache()
+    bn_s = time.perf_counter() - t0
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_visualize_",
+                            dir=build.BUILD_DIR.parent)
+    try:
+        root = os.path.join(work, "voc")
+        write_voc_tree(root, (("trainval", n_train), ("test", n_test)),
+                       seed=8, sizes=((300, 300),))
+        seconds = {"bn_backward": bn_s}
+        t0 = time.perf_counter()
+        debug = visualize_debug(root, work)
+        seconds["debug"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flags = visualize_flags(root, work, steps)
+        seconds["flags"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        demos = visualize_demos(work)
+        seconds["demos"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"phase": "visualize", "bn_backward": cases, "debug": debug,
+              "flags": flags, "demos": demos, "seconds": seconds,
+              "nvidia_smi": power_limit()}
+    emit(result)
+    return result
+
+
 # --- ddp: data parallelism across processes (odtpu_torch.parallel) ---
 
 DDP_TIMEOUT = 300  # seconds a launch of the ddp phase may take
@@ -2867,6 +3400,7 @@ def ddp_fit(work, tag, args, events, entered):
     del events[:]
     cfg, out_dir, _ = train.setup(args)
     cfg.DATASET.DATASET_DIR = os.path.join(work, "voc")
+    cfg.GENERAL.HISTORY_ROOT = os.path.join(work, "history_" + tag)
     cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
     cfg.TRAIN.LOG_LOSS_ITER = 1
     cfg.TRAIN.OPTIMIZER.LR = 1e-5
@@ -3249,6 +3783,8 @@ def main():
     exported = timed("export", phase_export)
     timed("extras", phase_extras)
     ddp = timed("ddp", phase_ddp)
+    vis = timed("visualize", phase_visualize)
+    debug, flags, demos = vis["debug"], vis["flags"], vis["demos"]
     # each entry's count from the run of the path that reaches it, in
     # bfloat16: the serving path for nms_rows, DetectOut for nms_mask;
     # beside it, the counts on every path of the run
@@ -3278,7 +3814,12 @@ def main():
             "export": {"{} B={}".format(art, b): one["launches"][name]
                        for art, a in exported["artifacts"].items()
                        for b, one in a["served"].items()},
-            "ddp": ddp_launches(ddp, name)}
+            "ddp": ddp_launches(ddp, name),
+            "train_debug": debug["launches"][name],
+            "flags": {tag: flags[tag]["launches"][name]
+                      for tag in ("off", "on")},
+            "detect_img": demos["launches"]["detect_img"][name],
+            "live": demos["launches"]["live"][name]}
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
     # the host sampler is C++ for the host, not a kernel of the card: it
@@ -3339,11 +3880,38 @@ def main():
                 "int8": {r["cfg"]: r["int8"]["bn_eval_launches"]
                          for r in int8},
                 "serving_ssd300": bf16["bn_eval_launches"],
-                "ddp": ddp_launches(ddp, "bn_eval")},
+                "ddp": ddp_launches(ddp, "bn_eval"),
+                "train_debug": debug["launches"]["bn_eval"],
+                "flags": {tag: flags[tag]["launches"]["bn_eval"]
+                          for tag in ("off", "on")}},
             "timed_on": "{} {}".format(largest["cfg"],
                                        largest["bn_eval"]["largest"]),
             **largest["bn_eval"]}
-    emit({"kernels": [mask, rows, norm], "host": [host],
+    # the norm's backward with respect to x, an entry of the same source:
+    # no TPU kernel's port either (XLA fuses the gradient of flax's norm);
+    # on the path of input-gradient saliency, python -m
+    # odtpu_torch.train_debug; timed on RFBNet512's largest norm input
+    timed_case = vis["bn_backward"][0]
+    backward = {
+        "name": "bn_eval_backward_dx", "route": "cuda",
+        "source": "odtpu_torch/csrc/batch_norm.cu",
+        "replaces": "the gradient of odtpu/models/common.py:177 flax "
+                    "nn.BatchNorm in eval mode with respect to its input "
+                    "(jax.grad, fused by XLA; no Pallas kernel)",
+        "launches": debug["launches"]["bn_eval_backward_dx"],
+        "path": "train_debug saliency on RFBNet300, {} sources".format(
+            len(debug["norms_upstream_of_each_source"])),
+        "launches_by_path": {
+            "train_debug": debug["launches"]["bn_eval_backward_dx"],
+            "flags": {tag: flags[tag]["launches"]["bn_eval_backward_dx"]
+                      for tag in ("off", "on")}},
+        "timed_on": timed_case["case"],
+        **{k: timed_case[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "library_ms", "max_abs_err",
+                                      "bound_ms", "bound_by", "bytes")},
+        "note": "library_ms is autograd's backward of "
+                "F.batch_norm(training=False) with respect to x"}
+    emit({"kernels": [mask, rows, norm, backward], "host": [host],
           "library": [library]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -23,12 +23,15 @@ Kept reference quirks, as in ``odtpu``: the crop's retry condition
 augmentations.py:254), the crop rect from unrounded float sizes cut by
 ``int()``, and hue wrapping at 360 on full-range float HSV.
 
-The per-stage TensorBoard dumps of ``odtpu``'s ``attach_writer`` need
-``utils/visualize.py``, which is not ported; the command line refuses
-``LOG.SHOW_AUG_STEPS``.
+``SSDAugmentation.attach_writer`` arms ``odtpu``'s per-stage TensorBoard
+dumps (``LOG.SHOW_AUG_STEPS``): the next ``max_dumps`` train items take
+the stepwise path (expand, crop, mirror and resize one after the other,
+the same draws) and log an image after each stage, their boxes in red.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 
@@ -403,6 +406,73 @@ class SSDAugmentation:
         self.photometric = photometric
         self.device_photometric = device_photometric
         self.device_normalize = device_normalize
+        # step-by-step TB dumps (reference Compose tb_writer hook,
+        # augmentations.py:395-404); attach_writer() arms them
+        self.tb_writer = None
+        self._max_dumps = 0
+        self._dumps_done = 0
+        self._dump_lock = threading.Lock()
+
+    def attach_writer(self, tb_writer, max_dumps=8):
+        """Arm per-stage augmentation image dumps (one TB image per
+        pipeline stage for the next ``max_dumps`` items). Dump slots are
+        claimed under a lock and TB writes are serialized, so the loader's
+        threads dump at most ``max_dumps`` items, each under its own
+        step."""
+        self.tb_writer = tb_writer
+        self._max_dumps = int(max_dumps)
+        self._dumps_done = 0
+
+    def _claim_dump_slot(self):
+        """Atomically claim the next dump index, or None when spent."""
+        if self.tb_writer is None:
+            return None
+        with self._dump_lock:
+            if self._dumps_done >= self._max_dumps:
+                return None
+            idx = self._dumps_done
+            self._dumps_done += 1
+            return idx
+
+    def _dump(self, stage, img, boxes, labels, step):
+        from ..utils.visualize import vis_img_box
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        gt = None
+        if boxes is not None and len(boxes):
+            gt = np.concatenate(
+                [np.asarray(boxes, np.float32).reshape(-1, 4),
+                 np.asarray(labels, np.float32).reshape(-1, 1)], axis=1)
+        with self._dump_lock:
+            vis_img_box(u8, {"gt": gt} if gt is not None else {},
+                        self.tb_writer, tag="augmentation/" + stage,
+                        step=step)
+
+    def _stepwise(self, img, boxes, labels, rng, slot):
+        """``__call__``'s train transform one stage at a time, each stage's
+        image dumped under step ``slot``: the same draws as the fused
+        paths."""
+        self._dump("0_input", img, boxes, labels, slot)
+        if not self.device_photometric and self.photometric:
+            img = photometric_distort(img, rng)
+            self._dump("1_photometric", img, boxes, labels, slot)
+        img, boxes = random_expand(img, boxes, rng, self.mean)
+        self._dump("2_expand", img, boxes, labels, slot)
+        img, boxes, labels = random_sample_crop(img, boxes, labels, rng)
+        self._dump("3_crop", img, boxes, labels, slot)
+        img, boxes = random_mirror(img, boxes, rng)
+        self._dump("4_mirror", img, boxes, labels, slot)
+        h, w, _ = img.shape
+        boxes[:, 0::2] /= w  # to percent
+        boxes[:, 1::2] /= h
+        img = np.ascontiguousarray(img)
+        img = (resize_u8(img, self.size) if img.dtype == np.uint8
+               else resize_f32(img, self.size))
+        self._dump("5_resize", img,
+                   boxes * np.asarray([self.size[1], self.size[0]] * 2,
+                                      np.float32), labels, slot)
+        if self.device_photometric:
+            return img, boxes, labels
+        return img - self.mean, boxes, labels
 
     def base(self, img):
         img = (resize_u8(img, self.size) if img.dtype == np.uint8
@@ -422,6 +492,11 @@ class SSDAugmentation:
         boxes = boxes.astype(np.float32).copy()
         boxes[:, 0::2] *= w  # to absolute
         boxes[:, 1::2] *= h
+        slot = self._claim_dump_slot()
+        if slot is not None:
+            if not self.device_photometric:
+                img = img.astype(np.float32)
+            return self._stepwise(img, boxes, labels, rng, slot)
         if self.device_photometric:
             # one sampler pass: virtual-canvas compose, x-flip and the
             # uint8 resize, after the same draws as the float path

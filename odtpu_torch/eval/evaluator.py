@@ -2,8 +2,11 @@
 mAP.
 
 Counterpart of ``odtpu/eval/evaluator.py`` ``EvalBase.validate``,
-``EvalVOC``, ``EvalCOCO`` and ``eval_solver_factory`` (the TensorBoard
-images and PR curves wait for ``utils/visualize.py``). The eval step is
+``EvalVOC``, ``EvalCOCO`` and ``eval_solver_factory``, with their
+TensorBoard images: the first eval batch's detections over its inputs
+under ``LOG.SHOW_TEST_IMAGE`` and VOC's per-class PR curves under
+``LOG.SHOW_PR_CURVE``, written on rank 0 when a writer is given. The
+eval step is
 ``step(images) -> {"rows": [B, R, 6], "dropped": [B]}``
 (``odtpu_torch.eval_step``); the rows' boxes are scaled from [0, 1] to
 each image's original pixels by the batch's ``extra`` (h, w, c), short
@@ -46,15 +49,19 @@ class EvalBase:
     def accumulate(self, det, extra, ids, img_idx, indices=None):
         raise NotImplementedError
 
-    def evaluate_stats(self):
+    def evaluate_stats(self, tb_writer=None):
         raise NotImplementedError
 
     def _gather_multihost(self):
         """All-gather the ranks' results (a no-op in one process)."""
 
-    def validate(self, eval_step):
+    def validate(self, eval_step, tb_writer=None):
         """Run ``eval_step`` over the loader; returns (per-class results,
-        [mAP])."""
+        [mAP]). ``tb_writer`` (a ``utils.logging.TBWriter``) takes the
+        images the ``LOG.SHOW_*`` flags ask for, on rank 0."""
+        if not parallel.is_main() or (tb_writer is not None
+                                      and tb_writer.writer is None):
+            tb_writer = None
         self.reset_results()
         img_idx = 0
         t_detect = 0.0
@@ -75,6 +82,9 @@ class EvalBase:
             det[..., 3] *= w
             det[..., 2] *= h
             det[..., 4] *= h
+            if (tb_writer is not None and self.cfg.LOG.SHOW_TEST_IMAGE
+                    and img_idx == 0):
+                self._log_test_images(batch, det, valid, tb_writer)
             indices = batch.get("indices")
             if indices is not None:
                 indices = indices[:valid]
@@ -94,7 +104,37 @@ class EvalBase:
             print("WARNING: the eval rows dropped {} detections beyond the "
                   "{}-per-image cross-class cap; raise EVAL.COMPACT_ROWS"
                   .format(n_dropped, cap), file=sys.stderr)
-        return self.evaluate_stats()
+        return self.evaluate_stats(tb_writer)
+
+    def _log_test_images(self, batch, det, valid, tb_writer, thresh=0.5):
+        """Detections against the input of the first eval batch's first 4
+        images (reference visualize_box, evaluate_utils.py:81-112): the
+        ground truth in red, rows scoring above ``thresh`` in green, both
+        at the network input's size, tag ``eval/detections``, step the
+        image's place in the batch."""
+        from ..utils.visualize import vis_img_box
+        mean = np.asarray(self.cfg.DATASET.PIXEL_MEANS, np.float32)
+        for b in range(min(valid, 4)):
+            img = np.asarray(batch["images"][b])
+            if img.dtype != np.uint8:  # undo mean-subtract + RGB flip
+                img = np.clip(img[:, :, ::-1] + mean, 0, 255)
+            h, w = img.shape[:2]
+            rows = det[b]
+            rows = rows[rows[:, 0] > thresh].copy()
+            # det is in original-image pixels; rescale to network input
+            oh = batch["extra"][b, 0]
+            ow = batch["extra"][b, 1]
+            rows[:, [1, 3]] *= w / ow
+            rows[:, [2, 4]] *= h / oh
+            # ground truth (normalized) -> network-input pixels
+            valid_gt = batch["labels"][b] >= 0
+            gt = np.concatenate(
+                [batch["boxes"][b][valid_gt]
+                 * np.array([w, h, w, h], np.float32),
+                 batch["labels"][b][valid_gt, None].astype(np.float32) + 1],
+                axis=1)
+            vis_img_box(img.astype(np.uint8), {"gt": gt, "pred": rows},
+                        tb_writer, tag="eval/detections", step=b)
 
 
 class EvalVOC(EvalBase):
@@ -161,12 +201,16 @@ class EvalVOC(EvalBase):
             pos, cls = int(keys[s, 0]), int(keys[s, 1])
             self.results[cls][pos] = np.ascontiguousarray(merged[s:e, 2:])
 
-    def evaluate_stats(self):
+    def evaluate_stats(self, tb_writer=None):
         res, mAP = evaluate_detections(
             self.results, self.loader.dataset, self.output_dir,
             test_set=self.test_set,
             use_07_metric=bool(self.cfg.EVAL.USE_07_METRIC),
             write_files=parallel.is_main())
+        # PR curves gated like the reference (LOG.SHOW_PR_CURVE,
+        # evaluate_utils.py:160)
+        if tb_writer is not None and self.cfg.LOG.SHOW_PR_CURVE:
+            tb_writer.add_pr_curves(res)
         return res, [mAP]
 
 
@@ -202,7 +246,7 @@ class EvalCOCO(EvalBase):
                  if self.rows else np.zeros((0, 7), np.float32))
         self.rows = [tuple(r) for r in parallel.allgather_host_rows(local)]
 
-    def evaluate_stats(self):
+    def evaluate_stats(self, tb_writer=None):
         gt_index = build_gt_index(self.loader.dataset)
         if self.loader.num_items < len(self.loader.dataset):
             keep_ids = {float(self.loader.dataset.items[i][1])

@@ -132,7 +132,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     a float64 ``x``), then ``(x - mean) * mul + bias`` with the product
     and the sum rounded apart (``nn.BatchNorm2d``'s own arithmetic rounds
     otherwise, and int8 serving spreads a last-bit difference), by
-    ``ops.cuda.batch_norm.bn_eval``: one kernel pass on a card. The
+    ``ops.cuda.batch_norm.bn_eval``: one kernel pass on a card. Where a
+    gradient is taken through it on a card (input-gradient saliency, with
+    the parameters' ``requires_grad`` off), it runs ``BnEvalFn``, the same
+    kernel with its backward with respect to ``x``. The
     result keeps ``x``'s dtype and layout. The same buffers and names as
     ``nn.BatchNorm2d``, so checkpoints and hooks see no difference. Train
     mode goes through :func:`batch_norm`, never this forward."""
@@ -141,7 +144,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         if self.training:
             raise RuntimeError("train-mode batch norm runs through "
                                "models.common.batch_norm")
-        return bn_ops.bn_eval(x, *self.eval_params(x.dtype))
+        params = self.eval_params(x.dtype)
+        if x.is_cuda and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, self.weight, self.bias)):
+            return bn_ops.BnEvalFn.apply(x, *params)
+        return bn_ops.bn_eval(x, *params)
 
     def eval_params(self, dtype: torch.dtype) -> tuple:
         """(mean, mul, bias) in the wide dtype of an activation of

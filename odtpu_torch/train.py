@@ -10,9 +10,11 @@ serving path's eval step (the CUDA NMS kernel on a card), which runs the
 model in eval mode and hands it back in train mode: batch norm validates
 with its running statistics and leaves them as they are. Saves and
 validations restart the throughput window. Resume and auto-resume read
-``<out_dir>/ckpt``. Losses, images/s and mAP go to TensorBoard when a
-writer is given, and ``profile_dir`` takes a ``torch.profiler`` trace of
-steps 11-20.
+``<out_dir>/ckpt``. Losses, images/s, the step's host time
+(``train/time``, a ``Timer``'s last reading) and mAP go to TensorBoard
+when a writer is given, with the validation's images under the
+``LOG.SHOW_*`` flags, and ``profile_dir`` takes a ``torch.profiler``
+trace of steps 11-20.
 
 The command line (``train.py:114``)::
 
@@ -25,7 +27,19 @@ into ``--output_dir`` (default ``weights/<job_group>/<cfg_name>``), with
 TensorBoard under ``logs/<job_group>_<cfg_name>``. The configuration is
 one of ``utils.config.CFGS``, by name or by its yml's path: the port
 reads no yaml. For the same reason the run's configuration is archived
-as ``config_used.json`` (``odtpu`` writes ``config_used.yml``).
+as ``config_used.json`` (``odtpu`` writes ``config_used.yml``). At the
+end of a run (``backup_jobs``, ``train.py:330-358``) that file and the
+TensorBoard directory are copied to
+``GENERAL.HISTORY_ROOT/<job_group>/<cfg_name>``, or to its first free
+``_n`` when it exists.
+
+The ``LOG.SHOW_*`` flags log images to TensorBoard (``utils/visualize.py``;
+they need the ``tensorboard`` package, else nothing is written):
+``SHOW_AUG_STEPS`` the first 8 train items after each augmentation stage,
+``SHOW_ANCHOR_MAPS`` each feature map's anchors, one image an anchor slot,
+``SHOW_TEST_IMAGE`` the first eval batch's detections,
+``SHOW_PR_CURVE`` VOC's per-class PR curves; ``SHOW_SALIENCY`` is
+``python -m odtpu_torch.train_debug``'s.
 
 Data parallelism over N cards, one process a card (``train.py:49-51``,
 ``:118-121``)::
@@ -49,6 +63,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import time
 from pathlib import Path
 
@@ -58,10 +73,13 @@ from . import parallel
 from .data import dataset_factory
 from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
+from .models import probe_layer_dims
+from .ops.priors import PriorBoxSSD
 from .train_step import create_train_state, make_train_step
 from .utils.checkpoint import Checkpointer, load_basenet
 from .utils.config import load_cfg, resolve_cfg_args
-from .utils.logging import TBWriter
+from .utils.logging import TBWriter, Timer
+from .utils.visualize import viz_prior_anchors
 
 # a --profile_dir trace starts when the first count of updates is done and
 # stops at the second: steps 11-20, as train.py:249-255 traces them
@@ -153,6 +171,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
 
     start = it = state.step
     last_log_iter, last_log_time = it, time.time()
+    timer = Timer()  # the host time of one pass of the loop
     pending = None  # (step, metrics) not read yet
     trace = _Trace(profile_dir, device)
     while it < max_iter:
@@ -160,6 +179,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
             if it >= max_iter:
                 break
             trace.before_step(it)
+            timer.tic()
             metrics = step_fn(state, torch.from_numpy(batch["images"]),
                               torch.from_numpy(batch["boxes"]),
                               torch.from_numpy(batch["labels"]))
@@ -184,9 +204,10 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                     tb_writer.add_scalars("train", {
                         "loss": m["loss"], "loc_loss": m["loss_loc"],
                         "conf_loss": m["loss_conf"],
-                        "img_per_sec": ips},
+                        "img_per_sec": ips, "time": timer.diff},
                         pending[0])
             pending = (it, metrics)
+            timer.toc(average=False)
             if it == PROFILE_STEPS[1]:
                 trace.stop()
 
@@ -200,7 +221,8 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                     ckpt.save(it, state)
                     say("saved checkpoint at", it, flush=True)
                 if validate:
-                    _, maps = eval_solver.validate(eval_fn)
+                    _, maps = eval_solver.validate(eval_fn,
+                                                   tb_writer=tb_writer)
                     dropped = eval_solver.last_timing["dropped_dets"]
                     out["evals"].append({"step": it, "mAP": maps[0],
                                          "maps": maps, "dropped": dropped})
@@ -299,15 +321,13 @@ def _plain(x):
     return x
 
 
-def run(args, cfg, out_dir, log_dir) -> dict:
+def run(args, cfg, out_dir, log_dir, tb_writer=None) -> dict:
     """Train ``cfg`` as ``args`` say: both loaders from
     ``dataset_factory``, the evaluator from ``eval_solver_factory``,
-    TensorBoard under ``log_dir``; returns :func:`fit`'s result."""
-    shown = [k for k, v in cfg.LOG.items() if k.startswith("SHOW_") and v]
-    if shown:
-        raise NotImplementedError(
-            "LOG.{} needs utils/visualize.py or the PR curves, which are "
-            "not ported to odtpu_torch yet".format(", LOG.".join(shown)))
+    TensorBoard under ``log_dir`` (or ``tb_writer``, a
+    ``utils.logging.TBWriter`` of the caller's), the images the
+    ``LOG.SHOW_*`` flags ask for, and the run archived by
+    :func:`backup_jobs` on rank 0; returns :func:`fit`'s result."""
     # the run's configuration, archived up front so a crash leaves it
     if parallel.is_main():
         with open(os.path.join(out_dir, "config_used.json"), "w") as f:
@@ -315,14 +335,49 @@ def run(args, cfg, out_dir, log_dir) -> dict:
     train_loader = dataset_factory("train", cfg)
     solver = eval_solver_factory(dataset_factory("eval", cfg), cfg,
                                  os.path.join(out_dir, "eval"))
-    tb = TBWriter(log_dir)
+    tb = TBWriter(log_dir) if tb_writer is None else tb_writer
+    if cfg.LOG.SHOW_AUG_STEPS:
+        # per-stage augmentation dumps (ref augmentations.py:395-404)
+        train_loader.transform.attach_writer(tb)
+    if cfg.LOG.SHOW_ANCHOR_MAPS and parallel.is_main():
+        # per-feature-map anchor renderings (ref prior_box.py:55-90)
+        viz_prior_anchors(PriorBoxSSD(cfg), probe_layer_dims(cfg), tb)
     try:
-        return fit(cfg, train_loader, solver, out_dir, device=args.device,
-                   resume=args.resume, auto_resume=args.auto_resume,
-                   basenet=args.basenet, tb_writer=tb,
-                   profile_dir=args.profile_dir)
+        out = fit(cfg, train_loader, solver, out_dir, device=args.device,
+                  resume=args.resume, auto_resume=args.auto_resume,
+                  basenet=args.basenet, tb_writer=tb,
+                  profile_dir=args.profile_dir)
     finally:
         tb.close()
+    if parallel.is_main():
+        out["history"] = backup_jobs(cfg, out_dir, log_dir, args)
+    return out
+
+
+def backup_jobs(cfg, out_dir, log_dir, args) -> str:
+    """Archive the run's ``config_used.json`` (as ``<cfg_name>.json``) and
+    its TensorBoard directory to ``HISTORY_ROOT/<job_group>/<cfg_name>``,
+    or to its first free ``_n`` when that exists (reference backup_jobs,
+    train.py:197-208, and ``odtpu``'s train.py:330-358); returns the
+    directory."""
+    dst = os.path.join(cfg.GENERAL.HISTORY_ROOT, args.job_group,
+                       args.cfg_name)
+    if os.path.exists(dst):
+        # the first free numbered suffix, so a third run of the same cfg
+        # never merges into an earlier backup
+        n = 1
+        while os.path.exists("{}_{}".format(dst, n)):
+            n += 1
+        dst = "{}_{}".format(dst, n)
+        print("history dir exists; backing up as", dst)
+    os.makedirs(dst, exist_ok=True)
+    cfg_file = os.path.join(out_dir, "config_used.json")
+    if os.path.isfile(cfg_file):
+        shutil.copyfile(cfg_file, os.path.join(dst, args.cfg_name + ".json"))
+    if os.path.isdir(log_dir):
+        shutil.copytree(log_dir, dst, dirs_exist_ok=True)
+    print("backed up cfg and TB logs to", dst)
+    return dst
 
 
 def main(argv=None) -> dict:

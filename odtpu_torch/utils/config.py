@@ -40,9 +40,11 @@ def _defaults() -> AttrDict:
     C.GENERAL.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), "..",
                                               ".."))
     C.GENERAL.WEIGHTS_ROOT = osp.join(C.GENERAL.ROOT_DIR, "weights")
+    # where a finished run's config and TensorBoard logs are archived
+    C.GENERAL.HISTORY_ROOT = osp.join(C.GENERAL.ROOT_DIR, "history")
 
-    # TensorBoard's root. Each SHOW_* flag needs utils/visualize.py or the
-    # PR curves, which are not ported: the command lines refuse them
+    # TensorBoard's root, and the images each SHOW_* flag logs there
+    # (utils/visualize.py; saliency through python -m odtpu_torch.train_debug)
     C.LOG = AttrDict()
     C.LOG.ROOT_DIR = osp.join(C.GENERAL.ROOT_DIR, "logs")
     C.LOG.SHOW_PR_CURVE = False

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from odtpu_torch import train
 from odtpu_torch.eval import cli
 from odtpu_torch.infer import random_state_dict
@@ -37,6 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _point_at(cfg, voc):
     cfg.DATASET.DATASET_DIR = voc
+    cfg.GENERAL.HISTORY_ROOT = os.path.join(os.path.dirname(voc), "history")
     cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
     cfg.DATASET.TRAIN_BATCH_SIZE = 2
     cfg.DATASET.EVAL_BATCH_SIZE = 2
@@ -159,7 +161,12 @@ def test_command_lines_refuse(argv, match, monkeypatch):
 
 def test_eval_scores_int8_and_train_refuses_visualisation(runs, tmp_path):
     """``--quant int8`` sets TPU.QUANT and scores the last checkpoint
-    with int8 convs: the same images, an mAP, a detection file a class."""
+    with int8 convs: the same images, an mAP, a detection file a class.
+    Then one train step with every TensorBoard flag but saliency on (the
+    command line once refused them), into a recording writer: the
+    augmentation dumps of up to 8 items, stage by stage, one anchor
+    map a (source, slot), the first eval batch's 2 images, a PR curve a
+    class with detections, and the run archived under HISTORY_ROOT."""
     calls = quant.INT_MM_CALLS
     eargs = cli.parse_args(["--device", "cpu", "--quant", "int8", "--ckpt",
                             os.path.join(runs["out"], "ckpt"),
@@ -174,11 +181,33 @@ def test_eval_scores_int8_and_train_refuses_visualisation(runs, tmp_path):
     assert all(0.0 <= m <= 1.0 for m in scored["maps"])
     assert len(list((tmp_path / "eval8").glob("det_*.txt"))) == 20
     args = train.parse_args(["--device", "cpu", "--output_dir",
-                             str(tmp_path)])
+                             str(tmp_path / "flags"), "--max_iter", "1"])
     cfg, out, log = train.setup(args)
-    cfg.LOG.SHOW_AUG_STEPS = True
-    with pytest.raises(NotImplementedError, match="SHOW_AUG_STEPS"):
-        train.run(args, cfg, out, log)
+    _point_at(cfg, str(runs["work"] / "voc"))
+    for flag in ("SHOW_AUG_STEPS", "SHOW_ANCHOR_MAPS", "SHOW_TEST_IMAGE",
+                 "SHOW_PR_CURVE"):
+        cfg.LOG[flag] = True
+    tb = chip_smoke.recording_writer()
+    done = train.run(args, cfg, out, log, tb_writer=tb)
+    assert done["step"] == 1 and len(done["evals"]) == 1
+    tags = tb.writer.tags()
+    stages = ("0_input", "1_photometric", "2_expand", "3_crop", "4_mirror",
+              "5_resize")
+    # every item the loader's threads augment until 8 are dumped: the
+    # batch's 2 and those prefetched, stage by stage, interleaved
+    dumps = [(t, step) for t, _, step in tb.writer.images
+             if t.startswith("augmentation/")]
+    items = sorted({step for _, step in dumps})
+    assert 2 <= len(items) <= 8 and items == list(range(len(items)))
+    assert sorted(dumps) == sorted(("augmentation/" + s, i)
+                                   for i in items for s in stages)
+    assert len([t for t in tags if t.startswith("base/feature_map_")]) == 30
+    assert tags.count("eval/detections") == 2
+    curves = tb.writer.curves
+    assert curves and all(t.startswith("pr/") and len(kw["precision"])
+                          for t, kw in curves)
+    assert os.path.isfile(os.path.join(done["history"],
+                                       "ssd_vgg16_voc.json"))
 
 
 @pytest.mark.parametrize("argv,name,run", [

@@ -3,7 +3,8 @@
 against the live path, the int8 conv (``torch._int_mm``) against its float64 oracle, the
 serving path's launches (SSD300 and RefineDet320) and train steps
 (SSD300, and SSD300 over DRN-D-22 with its batch norms) against the
-CPU's, on a card.
+CPU's, the eval-mode batch norm's kernel and its backward entries, and
+input-gradient saliency through them, on a card.
 
 These tests need a CUDA card and skip without one. This file imports no
 JAX, so on the card's machine it runs without the repo's conftest:
@@ -16,12 +17,14 @@ import pytest
 import torch
 
 import chip_smoke
+from odtpu_torch import train_debug
 from odtpu_torch.infer import Detector, random_images, random_state_dict
-from odtpu_torch.models import probe_layer_dims
+from odtpu_torch.models import model_factory, probe_layer_dims
 from odtpu_torch.ops import detect, quant
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import batch_norm, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
+from odtpu_torch.utils.checkpoint import load_strict
 from odtpu_torch.utils.config import default_cfg, load_cfg
 
 pytestmark = pytest.mark.gpu
@@ -282,3 +285,68 @@ def test_bn_eval_kernel_equals_plain(priors, dtype):
     leaf = params[1].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         batch_norm.bn_eval(xc, params[0], leaf, params[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_bn_eval_backward_kernel_equals_plain(priors, dtype):
+    """The backward's dx entry against ``bn_eval_backward_plain`` bit for
+    bit, a second launch bit-equal; channels-last and contiguous, packs
+    and not (C or H*W not a multiple of 8, a row offset that breaks the
+    alignment, more than 2048 channels); one launch a call."""
+    g = torch.Generator().manual_seed(10)
+    wide = batch_norm.wide_dtype(dtype)
+    for n, c, h, w in ((4, 64, 19, 19), (2, 24, 8, 8), (3, 3, 5, 7),
+                       (1, 1024, 1, 1), (3, 2056, 3, 3)):
+        dy = torch.randn(n + 1, c, h, w, generator=g).to(dtype)
+        mul = (torch.rand(c, generator=g) + 0.5).to(wide).cuda()
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            for off in (0, 1):
+                dyc = dy.cuda().contiguous(memory_format=fmt)[off:]
+                before = batch_norm.DX_LAUNCHES
+                dx = batch_norm.bn_eval_backward_dx_cuda(dyc, mul)
+                assert batch_norm.DX_LAUNCHES == before + 1
+                want = batch_norm.bn_eval_backward_plain(dyc, mul)
+                case = (n, c, h, w, fmt, off)
+                assert chip_smoke.same_bits(dx, want), case
+                assert dx.stride() == dyc.stride(), case
+                again = batch_norm.bn_eval_backward_dx_cuda(dyc, mul)
+                assert chip_smoke.same_bits(dx, again), case
+
+
+def test_saliency_on_card_runs_the_backward_kernel(priors):
+    """``viz_grads`` of SSD300 over VGG16-BN on the card in float64: the
+    backward's dx entry once for every norm upstream of each source
+    (counted in the autograd graph), the gradients within 1e-9 relative
+    L2 of the CPU's on the same weights and image (in float32 two conv
+    implementations order max-pool windows of near-equal values
+    otherwise and put the two apart; chip_smoke.saliency_parity prints
+    it)."""
+    cfg = load_cfg()
+    cfg.MODEL.BATCH_NORM = True
+    cfg.TPU.COMPUTE_DTYPE = "float64"
+    # seeded weights, every norm drawn at random on the CPU
+    det = Detector(cfg, random_state_dict(cfg, seed=0), device="cpu")
+    images = random_images(1, cfg.MODEL.IMAGE_SIZE, seed=3)
+    chip_smoke.random_norms(det, torch.from_numpy(images))
+    weights = det.model.state_dict()
+    image = (images.astype(np.float64) - np.float64([104, 117, 123]))
+    image = np.ascontiguousarray(image[..., ::-1])
+    grads = {}
+    for device in ("cuda", "cpu"):
+        model, _, _ = model_factory("eval", cfg, device)
+        load_strict(model, weights)
+        model.double()
+        if device == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+            per_source = chip_smoke.saliency_norms(
+                model, torch.from_numpy(image).cuda())
+            chip_smoke.reset_counts()
+        grads[device] = train_debug.saliency(model, image, cfg,
+                                             chip_smoke.recording_writer())
+        if device == "cuda":
+            assert len(per_source) == 6 and min(per_source) >= 1
+            assert batch_norm.DX_LAUNCHES == sum(per_source)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert chip_smoke.rel_l2(torch.from_numpy(a),
+                                 torch.from_numpy(b)) <= 1e-9

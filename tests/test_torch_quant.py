@@ -351,9 +351,9 @@ class _WatchInt8:
         self.seen, self.last_timing = [], {}
         self.calls = quant.INT_MM_CALLS
 
-    def validate(self, eval_fn):
+    def validate(self, eval_fn, tb_writer=None):
         before = quant.INT_MM_CALLS
-        out = self.solver.validate(eval_fn)
+        out = self.solver.validate(eval_fn, tb_writer)
         during = quant.INT_MM_CALLS - before
         self.last_timing = self.solver.last_timing
         rows = eval_fn(self.images)["rows"]

@@ -207,11 +207,11 @@ class _Watch:
         self.solver, self.cfg, self.images = solver, cfg, images
         self.seen, self.last_timing = [], {}
 
-    def validate(self, eval_fn):
+    def validate(self, eval_fn, tb_writer=None):
         model = eval_fn.model
         before = {k: v.clone() for k, v in model.state_dict().items()}
         mode = model.training
-        out = self.solver.validate(eval_fn)
+        out = self.solver.validate(eval_fn, tb_writer)
         self.last_timing = self.solver.last_timing
         rows = eval_fn(self.images)["rows"]
         by_hand = copy.deepcopy(model).eval()
