@@ -212,6 +212,32 @@ Phases, each printing one JSON line:
    equal ``Detector``'s, its PPM changed only in green; ``live
    --headless`` over 20 PPM frames, one ``nms_rows`` launch a frame,
    frame 0's rows equal ``detect_img``'s, the FPS.
+20. mesh: tensor-parallel and spatial meshes, one process a
+   rank on gloo, every rank on cuda:0, launched by ``python -m
+   torch.distributed.run`` running this script (``--mesh_child DxMxS
+   WORK``), cuDNN deterministic, on a seeded VOC tree (64 + 32 images):
+   at (D, M, S) = (1, 2, 1), (1, 1, 2) and (1, 2, 2) one step of
+   full-width SSD300 (batch 2) in float32 (TF32 and cuDNN off) and in
+   float64, at (1, 2, 2) RFBNet300 in float64, each held to one process
+   (relative L2 a tensor, gathered): float64 to its step within 1e-9,
+   float32 within 1e-6 to its step run with the layout's conv shapes
+   (channel blocks, slabs with halos cut from the whole map), whose
+   distance from the plain step and from float64's is printed with the
+   ReLU signs 2 blocks flip; at (1, 2, 1) and (1, 1, 2) an eval
+   batch of 4 images of every ``families`` configuration in float32, its
+   norms drawn at random: the gathered loc and conf within 1e-5 of one
+   process's, the rows at rtol 1e-4 and atol 1e-5 but where traced to a
+   tie in scores, equal to the plain detect path's, one ``nms_rows`` a
+   rank; the command lines (``train.parse_args``, ``setup``, ``run`` in
+   the gloo group): ``--multihost --mesh_model 2`` trains SSD300 for 4
+   bf16 steps of 32 images and validates, and ``odtpu_torch.eval
+   --multihost --mesh_spatial 2`` and ``odtpu_torch.eval`` at world 1
+   score its checkpoint in float32, their detection files equal but at
+   ties; per rank the parameter and momentum bytes at M = 2 (at most
+   0.65 of world 1's), the step's peak memory, activations and bytes
+   saved for the backward (its halo copies apart) at S = 2, the halo
+   bytes and ms a step (gloo sharing one card: correctness and memory,
+   not scaling).
 Each tree goes under ``build/`` and is removed after its phase. Then each
 phase's seconds, the ``kernels`` line (the host sampler under ``host``,
 the int8 GEMM under ``library``), and last ``{"ok": true, "device":
@@ -231,6 +257,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 import urllib.error
 import urllib.request
 
@@ -3358,9 +3385,13 @@ def finish(handle, timeout=DDP_TIMEOUT):
         rc = "timeout"
     if rc != 0:
         with open(log) as f:
-            tail = f.read()[-4000:]
-        raise AssertionError("{} exited {}:\n{}".format(" ".join(cmd), rc,
-                                                        tail))
+            text = f.read()
+        # the first error raised (the rank that failed first), and the end
+        first = re.search(r"^(\[rank\d+\]: )?[\w.]*(Error|Exception)\b.*$",
+                          text, re.M)
+        head = first.group(0)[:2000] + "\n...\n" if first else ""
+        raise AssertionError("{} exited {}:\n{}{}".format(
+            " ".join(cmd), rc, head, text[-4000:]))
     return time.perf_counter() - t0
 
 
@@ -3379,10 +3410,10 @@ def timed_all_reduces():
     from odtpu_torch import parallel
     events, all_reduce = [], parallel.all_reduce_grads
 
-    def timed(params):
+    def timed(params, *args):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
-        all_reduce(params)
+        all_reduce(params, *args)
         end.record()
         events.append((start, end))
 
@@ -3482,7 +3513,7 @@ def ddp_steps(work, device):
 def ddp_child(argv):
     """``python chip_smoke.py --ddp_child MODE WORK [train options]``, a
     process of the ddp phase, cuDNN deterministic. MODE ``world2``: two
-    ranks on gloo, both on cuda:0 (as ``train.distributed`` joins a
+    ranks on gloo, both on cuda:0 (as ``parallel.distributed`` joins a
     group, with gloo for NCCL), run :func:`ddp_steps`, then the train
     options, tagged ``gloo``. MODE ``world1``: the train options as they
     are (``plain``), then with ``--multihost`` (``nccl``), one after the
@@ -3515,7 +3546,7 @@ def ddp_child(argv):
     for tag, extra in (("plain", []), ("nccl", ["--multihost"])):
         args = train.parse_args(train_argv + extra + [
             "--output_dir", os.path.join(work, tag)])
-        with train.distributed(args):
+        with parallel.distributed(args):
             ddp_fit(work, tag, args, events, entered)
 
 
@@ -3747,9 +3778,734 @@ def ddp_launches(ddp, name):
             "rfbnet300_world2_gloo": [of(r) for r in ddp["world2"]["ranks"]]}
 
 
+# --- mesh: tensor-parallel and spatial meshes (parallel.mesh, .spatial) ---
+
+MESH_TIMEOUT = 300  # seconds a launch of the mesh phase may take
+# (D, M, S) of each launch; every one takes SSD300's float32 step
+MESH_LAYOUTS = ("1x2x1", "1x1x2", "1x2x2")
+# float64 steps are held to one process at 1e-9. A float32 step's convs
+# on a channel block or a slab with its halo are other GEMM shapes and
+# round otherwise: it is held at 1e-6 to one process running the same
+# shapes (:func:`rank_shapes`), whose distance from the plain step is
+# printed beside float32's own from float64
+MESH_STEP_LIMITS = {"ssd300_f32": 1e-6, "ssd300_f64": 1e-9,
+                    "rfbnet300_f64": 1e-9}
+MESH_OUTPUT_LIMIT = 1e-5  # relative L2 of the gathered loc and conf
+MESH_EVAL_IMAGES = 4
+
+
+def mesh_cfg(name, dtype, layout):
+    cfg = train_cfg(dtype, name)
+    cfg.TRAIN.OPTIMIZER.LR = 1e-3  # the default
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL, cfg.TPU.MESH_SPATIAL = layout
+    return cfg
+
+
+def mesh_step(work, key, layout, device):
+    """One train step of the ``key`` case (``WORK/<key>.pt``: its config,
+    dtype, full weights and batch) on the current mesh: the metrics, the
+    full momenta and running statistics (rank 0's, gathered), this
+    rank's parameter and momentum bytes, its peak memory over the step
+    and what it saved for the backward, the halo bytes it sent and the
+    step's ms."""
+    from odtpu_torch import parallel
+    from odtpu_torch.parallel import spatial
+    case = torch.load(os.path.join(work, key + ".pt"), weights_only=False)
+    cfg = mesh_cfg(case["name"], case["dtype"], layout)
+    state, priors = create_train_state(cfg, device)
+    if case["dtype"] == "float64":
+        state.model.double()
+        priors = priors.double()
+    state.model.load_state_dict(parallel.block_state_dict(
+        state.model, case["weights"]))
+    step = make_train_step(priors, cfg)
+    images, boxes, labels = (t.to(device) for t in case["batch"])
+    params = {k: v.to(device) for k, v in case["params"].items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sent = spatial.SENT_BYTES
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=case["cudnn"], benchmark=False,
+                                    deterministic=True, allow_tf32=False), \
+            saved_for_backward(state.model) as saved:
+        m = step(state, images, boxes, labels, aug_params=params)
+        torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - before
+    model, opt = state.model, state.optimizer
+    moms = parallel.full_optimizer_state(model, opt)["state"]
+    names = [k for k, _ in model.named_parameters()]
+    full = parallel.full_state_dict(model)
+    local = [opt.state[p]["momentum_buffer"] for p in model.parameters()]
+    return {"loss": float(m["loss"]), "num_pos": int(m["num_pos"]),
+            "momentum": {names[i]: s["momentum_buffer"].double().cpu()
+                         for i, s in moms.items()},
+            "stats": {k: full[k].double().cpu() for k in full
+                      if k.endswith(("running_mean", "running_var"))},
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "momentum_bytes": sum(t.numel() * t.element_size()
+                                  for t in local),
+            "peak_step_bytes": peak,
+            # the step's activations: its peak less the gradients and the
+            # momenta the first step makes, a tensor each a parameter
+            "activation_bytes": peak - 2 * sum(
+                t.numel() * t.element_size() for t in local),
+            "halo_bytes": spatial.SENT_BYTES - sent, "ms": ms, **saved}
+
+
+@contextlib.contextmanager
+def saved_for_backward(model):
+    """Count, in the block, the bytes of the storages autograd saves for
+    the backward (each once, the parameters' left out), and of those the
+    bytes that hold a halo copy: a map's rows fetched and padded for an
+    H-local op (``parallel.spatial``'s ``_halo`` and ``fetch`` outputs).
+    Yields the dict it fills: ``saved_bytes``, ``halo_copy_bytes``."""
+    from odtpu_torch.parallel import spatial
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    copies, seen = {}, set()
+    out = {"saved_bytes": 0, "halo_copy_bytes": 0}
+
+    def noted(fn):
+        def call(*args, **kwargs):
+            t = fn(*args, **kwargs)
+            copies[t.untyped_storage().data_ptr()] = weakref.ref(t)
+            return t
+        return call
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in params and ptr not in seen:
+            seen.add(ptr)
+            n = t.untyped_storage().nbytes()
+            out["saved_bytes"] += n
+            copy = copies.get(ptr)
+            if copy is not None and copy() is not None:
+                out["halo_copy_bytes"] += n
+        return t
+
+    original = spatial._halo, spatial.fetch
+    spatial._halo = noted(spatial._halo)
+    spatial.fetch = noted(spatial.fetch)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            yield out
+    finally:
+        spatial._halo, spatial.fetch = original
+
+
+@contextlib.contextmanager
+def rank_shapes(blocks=1, slabs=1):
+    """In the block every conv runs as the ranks of a (1, ``blocks``,
+    ``slabs``) mesh run it, in one process: a conv of at least
+    ``parallel.mesh.TP_MIN_CHANNELS`` output channels divisible by
+    ``blocks`` as ``blocks`` convs of a block of them each, and each conv
+    on ``slabs`` slabs of its output rows (``parallel.spatial.slab``),
+    each from its input window cut out of the whole map and zero-padded
+    as a rank's halo is; the outputs concatenated. Each block reads its
+    own view of the input, so that the input's gradient sums the slabs'
+    halo rows within a block first and then the blocks, as the ranks'
+    row exchanges and model all-reduce do."""
+    from odtpu_torch import parallel
+    from odtpu_torch.parallel import spatial
+    conv2d = spatial.conv2d
+
+    def on_slabs(x, weight, bias, stride, padding, dilation):
+        (kh, _), (sh, sw) = weight.shape[2:], spatial._pair(stride)
+        (ph, pw), (dh, dw) = spatial._pair(padding), spatial._pair(dilation)
+        h = x.shape[2]
+        h_out = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        outs = []
+        for i in range(slabs):
+            o0, o1 = spatial.slab(h_out, slabs, i)
+            if o0 < o1:
+                lo, hi = spatial.window(o0, o1, kh, sh, ph, dh)
+                a, b = max(lo, 0), min(hi, h)
+                ext = x[:, :, a:b]
+                if a - lo or hi - b:
+                    ext = F.pad(ext, (0, 0, a - lo, hi - b))
+                outs.append(conv2d(ext, weight, bias, (sh, sw), (0, pw),
+                                   (dh, dw)))
+        return torch.cat(outs, 2)
+
+    def run(x, weight, bias, *args):
+        out = weight.shape[0]
+        if out < parallel.mesh.TP_MIN_CHANNELS or out % blocks:
+            return on_slabs(x, weight, bias, *args)
+        c = out // blocks
+        return torch.cat([on_slabs(x.view_as(x), weight[i * c:(i + 1) * c],
+                                   None if bias is None
+                                   else bias[i * c:(i + 1) * c], *args)
+                          for i in range(blocks)], 1)
+
+    spatial.conv2d = run
+    try:
+        yield
+    finally:
+        spatial.conv2d = conv2d
+
+
+def relu_signs(work, key, device):
+    """(elements, elements whose sign differs) of the Conv ReLUs' outputs
+    between two train-phase forwards of the ``key`` case's augmented
+    batch in one process: as it is and with its wide convs as two
+    channel blocks (:func:`rank_shapes`)."""
+    case = torch.load(os.path.join(work, key + ".pt"), weights_only=False)
+    cfg = mesh_cfg(case["name"], case["dtype"], (1, 1, 1))
+    state, priors = create_train_state(cfg, device)
+    state.model.load_state_dict(case["weights"])
+    images = make_train_step(priors, cfg).augment(
+        case["batch"][0].to(device), 0,
+        {k: v.to(device) for k, v in case["params"].items()})
+    masks, runs = relu_masks(state.model), []
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=case["cudnn"], benchmark=False, deterministic=True,
+            allow_tf32=False):
+        for ctx in (contextlib.nullcontext(), rank_shapes(2)):
+            with ctx:
+                state.model(images, phase="train")
+            runs.append(dict(masks))
+    return sum(m.numel() for m in runs[0].values()), relu_flips(*runs)
+
+
+def mesh_f32_cause(work, one_steps, device):
+    """Each layout's float32 SSD300 step in one process with its ranks'
+    conv shapes (:func:`rank_shapes`), the float32 step the mesh is held
+    to, and why one process's plain step is not: ``{layout: momenta}``,
+    and a line of each such step's and of the plain one's distance from
+    the float64 step of the same weights and batch (the largest and the
+    median error a tensor), of 4 channel blocks' (another rounding), and
+    of the ReLU signs that 2 channel blocks flip."""
+    exact = one_steps["ssd300_f64"]["momentum"]
+
+    def errors(got, want):
+        e = momentum_errors({k: v.double() for k, v in got.items()}, want)
+        k = max(e, key=e.get)
+        return {"max": e[k], "tensor": k,
+                "median": float(np.median(list(e.values())))}
+
+    runs = {}
+    for text in MESH_LAYOUTS + ("1x4x1",):
+        _, blocks, slabs = (int(v) for v in text.split("x"))
+        with rank_shapes(blocks, slabs):
+            runs[text] = mesh_step(work, "ssd300_f32", (1, 1, 1),
+                                   device)["momentum"]
+    plain = one_steps["ssd300_f32"]["momentum"]
+    total, flips = relu_signs(work, "ssd300_f32", device)
+    line = {"vs_f64": {"plain": errors(plain, exact),
+                       **{t: errors(m, exact) for t, m in runs.items()}},
+            "vs_plain": {t: errors(m, plain) for t, m in runs.items()},
+            "relu_outputs": total, "relu_sign_flips_2_blocks": flips}
+    return runs, line
+
+
+def mesh_family(work, name, layout, device):
+    """An eval batch of configuration ``name`` (``WORK/family_<name>.pt``:
+    float32 weights with drawn norms, the images) through ``Detector`` on
+    the current mesh: the gathered outputs, the rows, the rows of the
+    plain detect path on the same outputs, and this rank's ``nms_rows``
+    and ``bn_eval`` launches."""
+    path = os.path.join(work, "family_{}.pt".format(name))
+    while not os.path.exists(path + ".done"):
+        time.sleep(0.05)
+    case = torch.load(path, weights_only=False)
+    cfg = load_cfg(name)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL, cfg.TPU.MESH_SPATIAL = layout
+    det = Detector(cfg, case["weights"], device=device)
+    images = case["images"].to(device)
+    reset_counts()
+    with torch.inference_mode():
+        outputs = det.step.forward(images)
+        rows = det.step.detect(*outputs)["rows"]
+        torch.cuda.synchronize()
+        launches = {**counts(), "bn_eval": batch_norm.LAUNCHES}
+        plain = plain_rows(det.step, *outputs)
+    return {"outputs": [o.cpu() for o in outputs], "rows": rows.cpu(),
+            "plain_equal": bool(torch.equal(rows, plain)),
+            "launches": launches}
+
+
+def mesh_cli_train(work, device):
+    """``odtpu_torch.train``'s command line with ``--multihost
+    --mesh_model 2`` (this rank already in the gloo group: NCCL refuses
+    two ranks on one card): 4 bf16 SSD300 steps of 32 images and one
+    validation, the checkpoint under ``WORK/cli_train``."""
+    args = train.parse_args([
+        "--cfg_name", "ssd_vgg16_voc", "--multihost", "--mesh_model", "2",
+        "--device", str(device), "--max_iter", "4",
+        "--output_dir", os.path.join(work, "cli_train")])
+    cfg, out_dir, _ = train.setup(args)
+    cfg.DATASET.DATASET_DIR = os.path.join(work, "voc")
+    cfg.GENERAL.HISTORY_ROOT = os.path.join(work, "history")
+    cfg.DATASET.TRAIN_SETS = (("2007", "trainval"),)
+    cfg.TRAIN.LOG_LOSS_ITER = 1
+    cfg.TRAIN.OPTIMIZER.LR = 1e-5
+    cfg.DATASET.NUM_WORKERS = 2
+    cfg.DATASET.DEVICE_PHOTOMETRIC = True
+    reset_counts()
+    res = train.run(args, cfg, out_dir, "")
+    return {"losses": res["losses"], "evals": res["evals"],
+            "ckpt_steps": res["ckpt_steps"],
+            "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES}}
+
+
+def mesh_cli_eval(work, device, tag, extra=()):
+    """``odtpu_torch.eval``'s command line on the checkpoint of
+    :func:`mesh_cli_train`, in float32 (TF32 off): its mAP, image and
+    dropped counts, launches and (rank 0's) detection files' lines."""
+    from odtpu_torch import parallel
+    args = cli.parse_args(["--cfg_name", "ssd_vgg16_voc", "--device",
+                           str(device), "--ckpt",
+                           os.path.join(work, "cli_train", "ckpt"),
+                           "--output_dir", os.path.join(work, tag)]
+                          + list(extra))
+    cfg = cli.setup(args)
+    cfg.DATASET.DATASET_DIR = os.path.join(work, "voc")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    reset_counts()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        res = cli.run(args, cfg)
+    out = {"maps": res["maps"], "weights": res["weights"],
+           "images": res["timing"]["images"],
+           "dropped": res["timing"]["dropped_dets"],
+           "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES}}
+    if parallel.is_main():
+        out["lines"] = det_lines(os.path.join(work, tag))
+    return out
+
+
+def det_lines(directory):
+    """{(class, image): [(score, x1, y1, x2, y2), ...]} of the VOC
+    detection files ``det_<set>_<cls>.txt`` in ``directory``."""
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        if not (name.startswith("det_") and name.endswith(".txt")):
+            continue
+        cls = name[:-4].split("_", 2)[2]
+        with open(os.path.join(directory, name)) as f:
+            for line in f:
+                img, *values = line.split()
+                out.setdefault((cls, img), []).append(
+                    tuple(float(v) for v in values))
+    return out
+
+
+def det_lines_apart(got, want, score_tol=1.5e-3, box_tol=0.15, rtol=1e-4):
+    """The detection-file lines of ``got`` and ``want`` (:func:`det_lines`)
+    without a counterpart in the other (same class and image, the score
+    within one unit of its printed 3 decimals, the box within one of its
+    printed 0.1 px and ``rtol`` of its size, as the rows are held), as
+    (side, class, image, line, traced): a line is traced to a tie when
+    its score is within ``score_tol`` of its image's lowest kept score in
+    its own run (the row cap's cut took another candidate of near-equal
+    score)."""
+    lowest = {}
+    for side, lines in (("got", got), ("want", want)):
+        for (cls, img), rows in lines.items():
+            low = min(r[0] for r in rows)
+            lowest[side, img] = min(lowest.get((side, img), low), low)
+    apart = []
+    for key in sorted(set(got) | set(want)):
+        left, right = list(got.get(key, [])), list(want.get(key, []))
+        unmatched = []
+        for row in left:
+            hit = next((i for i, r in enumerate(right)
+                        if abs(r[0] - row[0]) <= score_tol
+                        and all(abs(a - b) <= box_tol + rtol * abs(b)
+                                for a, b in zip(r[1:], row[1:]))), None)
+            if hit is None:
+                unmatched.append(("got", row))
+            else:
+                right.pop(hit)
+        unmatched += [("want", row) for row in right]
+        for side, row in unmatched:
+            low = lowest[side, key[1]]
+            apart.append((side, key[0], key[1], row,
+                          abs(row[0] - low) <= score_tol))
+    return apart
+
+
+def mesh_child(argv):
+    """``python chip_smoke.py --mesh_child DxMxS WORK``, a rank of the mesh
+    phase: joins a gloo group on cuda:0, lays out the mesh and runs its
+    launch's cases (:func:`phase_mesh`); writes ``WORK/<DxMxS>_rank<r>.pt``."""
+    from odtpu_torch import parallel
+    text, work = argv
+    layout = tuple(int(v) for v in text.split("x"))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    device = parallel.init_distributed("cuda:0", "gloo")
+    try:
+        parallel.make_mesh(mesh_cfg("ssd_vgg16_voc", "float32", layout),
+                           device)
+        out = {"rank": parallel.rank(), "layout": layout,
+               "coords": (parallel.current().d, parallel.current().m,
+                          parallel.current().s), "steps": {},
+               "families": {}, "seconds": {}}
+        t0 = time.perf_counter()
+        keys = ["ssd300_f32", "ssd300_f64"] + (
+            ["rfbnet300_f64"] if layout == (1, 2, 2) else [])
+        for key in keys:
+            out["steps"][key] = mesh_step(work, key, layout, device)
+        out["seconds"]["steps"] = time.perf_counter() - t0
+        # every process of the phase shares the card: each hands back
+        # what its allocator keeps between parts
+        torch.cuda.empty_cache()
+        if layout != (1, 2, 2):
+            t0 = time.perf_counter()
+            for name in FAMILIES:
+                out["families"][name] = mesh_family(work, name, layout,
+                                                    device)
+            out["seconds"]["families"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if layout == (1, 2, 1):
+            out["cli_train"] = mesh_cli_train(work, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            parallel.barrier()
+            if parallel.is_main():
+                open(os.path.join(work, "cli_train.done"), "w").close()
+        elif layout == (1, 1, 2):
+            done = os.path.join(work, "cli_train.done")
+            while not os.path.exists(done):
+                time.sleep(0.1)
+            out["cli_eval"] = mesh_cli_eval(work, device, "eval_spatial",
+                                            ["--multihost",
+                                             "--mesh_spatial", "2"])
+        out["seconds"]["cli"] = time.perf_counter() - t0
+        with open(os.path.join(work, "{}_rank{}.pt".format(
+                text, parallel.rank())), "wb") as f:
+            torch.save(out, f)
+        parallel.barrier()
+    finally:
+        parallel.shutdown()
+
+
+def mesh_inputs(work):
+    """The step cases' files: SSD300 in float32 (cuDNN off, as the ddp
+    phase holds its float32 step) and in float64, and RFBNet300 in
+    float64, each with
+    :func:`random_state_dict`'s weights, :func:`parity_batch`'s 2 images
+    and seeded photometric parameters."""
+    for key, name, dtype, cudnn in (
+            ("ssd300_f32", "ssd_vgg16_voc", "float32", False),
+            ("ssd300_f64", "ssd_vgg16_voc", "float64", True),
+            ("rfbnet300_f64", "rfbnet300_vgg16_voc", "float64", True)):
+        cfg = train_cfg("float32", name)
+        weights = random_state_dict(cfg, seed=0)
+        if dtype == "float64":
+            weights = {k: v.double() if v.is_floating_point() else v
+                       for k, v in weights.items()}
+        torch.save({"name": name, "dtype": dtype, "cudnn": cudnn,
+                    "weights": weights,
+                    "batch": parity_batch(2, cfg=cfg),
+                    "params": draw_params(2, torch.Generator().manual_seed(
+                        5))}, os.path.join(work, key + ".pt"))
+
+
+def mesh_family_one(work, name):
+    """Configuration ``name`` in one process on the card (float32, TF32
+    off): its weights with every batch norm drawn by :func:`random_norms`
+    (on the CPU, from the first image), written with 4 seeded images for
+    the ranks, and its outputs and rows."""
+    cfg = load_cfg(name)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    images = torch.from_numpy(random_images(
+        MESH_EVAL_IMAGES, cfg.MODEL.IMAGE_SIZE, 11))
+    with torch.inference_mode():
+        # the norms drawn on the CPU from one image's activations
+        cpu = Detector(cfg, random_state_dict(cfg, seed=0), device="cpu")
+        random_norms(cpu, images[:1])
+        weights = cpu.model.state_dict()
+        path = os.path.join(work, "family_{}.pt".format(name))
+        torch.save({"weights": weights, "images": images}, path)
+        open(path + ".done", "w").close()
+        det = Detector(cfg, weights, device="cuda")
+        outputs = det.step.forward(images.cuda())
+        rows = det.step.detect(*outputs)["rows"]
+    return {"outputs": [o.cpu() for o in outputs], "rows": rows.cpu()}
+
+
+def rows_apart(got, want, rtol=1e-4, atol=1e-5, tie=1e-5):
+    """The rows of ``got`` [B, R, 6] off ``want``'s at (rtol, atol), as
+    (image, row, got's row, want's row, traced): a row is traced to a tie
+    in scores when ``got``'s row stands in ``want`` at another place
+    whose score is within ``tie`` of its own (two near-equal candidates
+    swapped), or when its score is within ``tie`` of the image's last
+    kept score (the cross-class cut took another of near-equal score)."""
+    close = torch.isclose(got, want, rtol=rtol, atol=atol).all(-1)
+    out = []
+    for b, r in zip(*torch.nonzero(~close, as_tuple=True)):
+        b, r = int(b), int(r)
+        row, scores = got[b, r], want[b, :, 0]
+        near = torch.nonzero((scores - row[0]).abs() <= tie).flatten()
+        swapped = any(bool(torch.isclose(row, want[b, q], rtol=rtol,
+                                         atol=atol).all()) for q in near)
+        kept = scores[scores > 0]
+        boundary = len(kept) > 0 and float((row[0] - kept.min()).abs()) \
+            <= tie
+        out.append((b, r, row.tolist(), want[b, r].tolist(),
+                    bool(swapped or boundary)))
+    return out
+
+
+def phase_mesh(n_train=64, n_test=32):
+    """Tensor-parallel and spatial meshes, one process a rank on gloo,
+    every rank on cuda:0, launched by ``python -m torch.distributed.run``
+    running this script (:func:`mesh_child`), cuDNN deterministic:
+
+    - at (1, 2, 1), (1, 1, 2) and (1, 2, 2): one step of full-width
+      SSD300 (batch 2) in float32 (TF32 and cuDNN off) and in float64,
+      held to the same step in one process here, float32's run with the
+      layout's conv shapes (:func:`mesh_f32_cause`;
+      :data:`MESH_STEP_LIMITS`, relative L2 a tensor, gathered); at
+      (1, 2, 2) also RFBNet300 in float64;
+    - at (1, 2, 1) and (1, 1, 2): an eval batch of 4 images of every
+      configuration of ``families`` in float32, its batch norms drawn at
+      random: the gathered loc and conf within :data:`MESH_OUTPUT_LIMIT`
+      of one process's, the rows at rtol 1e-4 and atol 1e-5 (a row off
+      must sit at a tie in scores), the rows equal to the plain detect
+      path's on the same outputs, one ``nms_rows`` launch on each rank;
+    - the command lines: ``odtpu_torch.train --multihost --mesh_model 2``
+      (4 bf16 SSD300 steps of 32 images and a validation) at (1, 2, 1),
+      its checkpoint scored by ``odtpu_torch.eval --multihost
+      --mesh_spatial 2`` at (1, 1, 2) and by ``odtpu_torch.eval`` at
+      world 1 here, in float32: their detection files' lines equal but
+      at ties (:func:`det_lines_apart`);
+    - per rank: parameter and momentum bytes at M = 2 against world 1,
+      peak memory of the step at S = 2 against world 1 (same batch), its
+      activations (the peak less the gradients and new momenta) and the
+      bytes saved for its backward, of them the halo copies
+      (:func:`saved_for_backward`), the halo bytes a step and its ms
+      (gloo sharing one card: these show correctness and memory, not
+      scaling)."""
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_",
+                            dir=build.BUILD_DIR.parent)
+    launches = []
+    t_start = time.perf_counter()
+    try:
+        write_voc_tree(os.path.join(work, "voc"),
+                       (("trainval", n_train), ("test", n_test)), seed=4)
+        mesh_inputs(work)
+        for text in MESH_LAYOUTS:
+            n = int(np.prod([int(v) for v in text.split("x")]))
+            launches.append(start(torchrun(n, "--mesh_child", text, work),
+                                  os.path.join(work, text + ".log")))
+        seconds = {}
+        t0 = time.perf_counter()
+        one_families = {name: mesh_family_one(work, name)
+                        for name in FAMILIES}
+        seconds["families_one_process"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one_steps = {key: mesh_step(work, key, (1, 1, 1), "cuda")
+                     for key in MESH_STEP_LIMITS}
+        seconds["steps_one_process"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shaped, f32_cause = mesh_f32_cause(work, one_steps, "cuda")
+        seconds["f32_cause"] = time.perf_counter() - t0
+        for handle in launches:
+            seconds["launch_" + handle[1][-2]] = finish(handle,
+                                                        MESH_TIMEOUT)
+        ranks = {}
+        for text in MESH_LAYOUTS:
+            n = int(np.prod([int(v) for v in text.split("x")]))
+            ranks[text] = [torch.load(os.path.join(
+                work, "{}_rank{}.pt".format(text, r)), weights_only=False)
+                for r in range(n)]
+        t0 = time.perf_counter()
+        world1_eval = mesh_cli_eval(work, "cuda", "eval_world1")
+        seconds["cli_eval_world1"] = time.perf_counter() - t0
+    finally:
+        for handle in launches:
+            stop(handle)
+        shutil.rmtree(work, ignore_errors=True)
+    failing = []
+    steps = []
+    for text, rs in ranks.items():
+        for key, ref in one_steps.items():
+            if key not in rs[0]["steps"]:
+                continue
+            got = rs[0]["steps"][key]
+            limit = MESH_STEP_LIMITS[key]
+            updates = momentum_errors(got["momentum"], ref["momentum"])
+            stats = stats_errors(got["stats"], ref["stats"])
+            worst = max(updates, key=updates.get)
+            held = {**updates, **stats}
+            if key == "ssd300_f32":  # held to its ranks' shapes
+                held = momentum_errors(got["momentum"], {
+                    k: v.double() for k, v in shaped[text].items()})
+            line = {"layout": text, "case": key, "limit": limit,
+                    "max_held_error": max(held.values(), default=0.0),
+                    "loss": got["loss"],
+                    "loss_one_process": ref["loss"],
+                    "num_pos": got["num_pos"],
+                    "max_update_error": updates[worst], "worst": worst,
+                    "max_stats_error": max(stats.values(), default=0.0),
+                    "ranks": [{k: r["steps"][key][k] for k in (
+                        "param_bytes", "momentum_bytes", "peak_step_bytes",
+                        "activation_bytes", "saved_bytes",
+                        "halo_copy_bytes", "halo_bytes", "ms")}
+                              for r in rs]}
+            steps.append(line)
+            failing += ["{} {} {} {}".format(text, key, k, v)
+                        for k, v in held.items() if not v <= limit]
+            if got["num_pos"] != ref["num_pos"] or not math.isclose(
+                    got["loss"], ref["loss"], rel_tol=1e-5):
+                failing.append("{} {}: {}".format(text, key, line))
+    families = []
+    for text in ("1x2x1", "1x1x2"):
+        for name in FAMILIES:
+            want = one_families[name]
+            per_rank = [r["families"][name] for r in ranks[text]]
+            got = per_rank[0]
+            errors = [rel_l2(g, w) for g, w in zip(got["outputs"],
+                                                    want["outputs"])]
+            off = rows_apart(got["rows"], want["rows"])
+            ties = [o[-1] for o in off]
+            line = {"layout": text, "cfg": name, "output_errors": errors,
+                    "rows_off": len(off), "rows_off_at_ties": ties,
+                    "rows_off_detail": off[:8],
+                    "ranks_equal": all(torch.equal(r["rows"], got["rows"])
+                                       for r in per_rank),
+                    "plain_equal": [r["plain_equal"] for r in per_rank],
+                    "launches": [r["launches"] for r in per_rank]}
+            families.append(line)
+            if not (max(errors) <= MESH_OUTPUT_LIMIT and all(ties)
+                    and line["ranks_equal"] and all(line["plain_equal"])
+                    and all(r["launches"]["nms_rows"] == 1
+                            and r["launches"]["nms_mask"] == 0
+                            for r in per_rank)):
+                failing.append("families {}".format(line))
+    one_ssd = one_steps["ssd300_f32"]
+    tp = ranks["1x2x1"]
+    sp = ranks["1x1x2"]
+    memory = {
+        "world1_param_bytes": one_ssd["param_bytes"],
+        "world1_momentum_bytes": one_ssd["momentum_bytes"],
+        "m2_param_bytes": [r["steps"]["ssd300_f32"]["param_bytes"]
+                           for r in tp],
+        "m2_momentum_bytes": [r["steps"]["ssd300_f32"]["momentum_bytes"]
+                              for r in tp],
+        "world1_peak_step_bytes": one_ssd["peak_step_bytes"],
+        "s2_peak_step_bytes": [r["steps"]["ssd300_f32"]["peak_step_bytes"]
+                               for r in sp],
+        "world1_activation_bytes": one_ssd["activation_bytes"],
+        "s2_activation_bytes": [r["steps"]["ssd300_f32"]["activation_bytes"]
+                                for r in sp],
+        "s2_halo_bytes": [r["steps"]["ssd300_f32"]["halo_bytes"]
+                          for r in sp],
+        "world1_saved_bytes": one_ssd["saved_bytes"],
+        "s2_saved_bytes": [r["steps"]["ssd300_f32"]["saved_bytes"]
+                           for r in sp],
+        "s2_halo_copy_bytes": [r["steps"]["ssd300_f32"]["halo_copy_bytes"]
+                               for r in sp],
+        "world1_ms": one_ssd["ms"]}
+    share = max((p + m) / (one_ssd["param_bytes"] + one_ssd[
+        "momentum_bytes"]) for p, m in zip(memory["m2_param_bytes"],
+                                           memory["m2_momentum_bytes"]))
+    memory["m2_share_of_world1"] = share
+    memory["s2_peak_share_of_world1"] = max(
+        memory["s2_peak_step_bytes"]) / max(one_ssd["peak_step_bytes"], 1)
+    memory["s2_activation_share_of_world1"] = max(
+        memory["s2_activation_bytes"]) / max(one_ssd["activation_bytes"], 1)
+    memory["s2_saved_share_of_world1"] = max(
+        memory["s2_saved_bytes"]) / max(one_ssd["saved_bytes"], 1)
+    memory["s2_saved_less_copies_share_of_world1"] = max(
+        s - c for s, c in zip(memory["s2_saved_bytes"],
+                              memory["s2_halo_copy_bytes"])) / max(
+        one_ssd["saved_bytes"], 1)
+    if not share <= 0.65:
+        failing.append("M = 2 keeps {:.3f} of the parameter and momentum "
+                       "bytes".format(share))
+    cli_train = tp[0]["cli_train"]
+    cli_eval = sp[0]["cli_eval"]
+    cli_line = {
+        "train_mesh_model_2": {"losses": [
+            {k: m[k] for k in ("step", "loss", "num_pos")}
+            for m in cli_train["losses"]], "evals": cli_train["evals"],
+            "ckpt_steps": cli_train["ckpt_steps"],
+            "launches": [r["cli_train"]["launches"] for r in tp]},
+        "eval_mesh_spatial_2": {"maps": cli_eval["maps"],
+                                "images": cli_eval["images"],
+                                "dropped": cli_eval["dropped"],
+                                "launches": [r["cli_eval"]["launches"]
+                                             for r in sp]},
+        "eval_world1": {"maps": world1_eval["maps"],
+                        "images": world1_eval["images"],
+                        "dropped": world1_eval["dropped"],
+                        "launches": world1_eval["launches"]}}
+    maps = [cli_train["evals"][-1]["mAP"], cli_eval["maps"][0],
+            world1_eval["maps"][0]]
+    # the spatial mesh's detection files against world 1's, same weights
+    apart = det_lines_apart(cli_eval["lines"], world1_eval["lines"])
+    n_lines = sum(len(v) for v in world1_eval["lines"].values())
+    cli_line["eval_lines"] = {
+        "world1": n_lines,
+        "mesh_spatial_2": sum(len(v) for v in cli_eval["lines"].values()),
+        "apart": len(apart), "apart_at_ties": sum(a[-1] for a in apart),
+        "apart_detail": apart[:8]}
+    if cli_train["ckpt_steps"] != [4] or not all(
+            math.isfinite(m["loss"]) and m["num_pos"] > 0
+            for m in cli_train["losses"]) or not n_lines or not all(
+                a[-1] for a in apart) or len(apart) > 0.01 * n_lines \
+            or not cli_eval["images"] == world1_eval["images"] == n_test \
+            or not math.isclose(maps[1], maps[2], abs_tol=1e-3):
+        failing.append("command lines {}".format(cli_line))
+    for r in tp:
+        if r["cli_train"]["launches"]["nms_rows"] != 1:
+            failing.append("train validation launches {}".format(
+                r["cli_train"]["launches"]))
+    for r in sp:
+        if r["cli_eval"]["launches"]["nms_rows"] != 1:
+            failing.append("eval launches {}".format(
+                r["cli_eval"]["launches"]))
+    seconds["phase"] = time.perf_counter() - t_start
+    result = {"phase": "mesh", "backend": "gloo",
+              "device": "cuda:0 (every rank)",
+              "note": "ranks share one card on gloo: correctness and "
+                      "memory, not scaling",
+              "steps": steps, "f32_cause": f32_cause,
+              "families": families, "memory": memory,
+              "cli": cli_line, "maps": maps,
+              "child_seconds": {t: [r["seconds"] for r in rs]
+                                for t, rs in ranks.items()},
+              "seconds": seconds, "nvidia_smi": power_limit()}
+    emit(result)
+    if failing:
+        raise AssertionError("mesh phase: {}".format(failing[:20]))
+    return result
+
+
+def mesh_launches(mesh, name):
+    """The ``mesh`` phase's launches of kernel entry ``name`` on each rank:
+    every family's eval batch at (1, 2, 1) and (1, 1, 2), and the command
+    lines' validation and eval."""
+    out = {}
+    for line in mesh["families"]:
+        out["{} {}".format(line["layout"], line["cfg"])] = [
+            launches[name] for launches in line["launches"]]
+    cli_line = mesh["cli"]
+    out["train --mesh_model 2"] = [
+        launches[name] for launches in
+        cli_line["train_mesh_model_2"]["launches"]]
+    out["eval --mesh_spatial 2"] = [
+        launches[name] for launches in
+        cli_line["eval_mesh_spatial_2"]["launches"]]
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--ddp_child"]:
         ddp_child(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--mesh_child"]:
+        mesh_child(sys.argv[2:])
         return
     t_start = time.perf_counter()
     seconds = {}
@@ -3783,6 +4539,7 @@ def main():
     exported = timed("export", phase_export)
     timed("extras", phase_extras)
     ddp = timed("ddp", phase_ddp)
+    mesh = timed("mesh", phase_mesh)
     vis = timed("visualize", phase_visualize)
     debug, flags, demos = vis["debug"], vis["flags"], vis["demos"]
     # each entry's count from the run of the path that reaches it, in
@@ -3815,6 +4572,7 @@ def main():
                        for art, a in exported["artifacts"].items()
                        for b, one in a["served"].items()},
             "ddp": ddp_launches(ddp, name),
+            "mesh": mesh_launches(mesh, name),
             "train_debug": debug["launches"][name],
             "flags": {tag: flags[tag]["launches"][name]
                       for tag in ("off", "on")},
@@ -3881,6 +4639,7 @@ def main():
                          for r in int8},
                 "serving_ssd300": bf16["bn_eval_launches"],
                 "ddp": ddp_launches(ddp, "bn_eval"),
+                "mesh": mesh_launches(mesh, "bn_eval"),
                 "train_debug": debug["launches"]["bn_eval"],
                 "flags": {tag: flags[tag]["launches"]["bn_eval"]
                           for tag in ("off", "on")}},

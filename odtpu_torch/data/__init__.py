@@ -15,10 +15,11 @@ def dataset_factory(phase, cfg):
     """A loader of ``cfg``'s dataset (``odtpu/data/__init__.py``): phase
     "train" shuffles, drops the last short batch and augments fully;
     "eval" keeps the order and resizes, the uint8 images normalised on
-    the device. In a process group each rank loads its slice
-    (``DetLoader(shard=(rank, world))``), and the train batch is its share
-    of ``TRAIN_BATCH_SIZE``, the global batch; the eval batch stays whole
-    on each rank, as in odtpu, and the evaluator gathers the rows."""
+    the device. On a mesh each data index loads its slice
+    (``DetLoader(shard=(d, D))``: every model and spatial rank of it the
+    same images), and the train batch is its share of
+    ``TRAIN_BATCH_SIZE``, the global batch; the eval batch stays whole on
+    each data index, as in odtpu, and the evaluator gathers the rows."""
     name = cfg.DATASET.NAME.upper()
     train = phase == "train"
     sets = cfg.DATASET.TRAIN_SETS if train else cfg.DATASET.TEST_SETS
@@ -42,13 +43,13 @@ def dataset_factory(phase, cfg):
         device_photometric=train and bool(cfg.DATASET.DEVICE_PHOTOMETRIC),
         device_normalize=not train,
         photometric=bool(cfg.DATASET.PHOTOMETRIC))
-    world, rank = parallel.world(), parallel.rank()
+    world, rank = parallel.data_world(), parallel.data_rank()
     batch = int(cfg.DATASET.TRAIN_BATCH_SIZE if train
                 else cfg.DATASET.EVAL_BATCH_SIZE)
     if train and world > 1:
         if batch % world:
             raise ValueError("TRAIN_BATCH_SIZE {} does not divide among {} "
-                             "processes".format(batch, world))
+                             "data indices".format(batch, world))
         batch //= world
     return DetLoader(
         dataset, transform, batch_size=batch,

@@ -18,6 +18,19 @@ checkpoint it warns and scores the seeded init, as ``eval.py`` does.
 ``--quant int8`` sets ``TPU.QUANT`` and scores with int8 convs
 (``ops/quant.py``; the heads stay in the compute dtype), as
 ``eval.py:51-52`` does.
+
+On a mesh of N processes, one a card (root ``eval.py:53-106`` on a mesh
+of devices)::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m odtpu_torch.eval --multihost [--mesh_model M] \
+        [--mesh_spatial S] --cfg_name ssd_vgg16_voc ...
+
+each data index (``N / (M * S)`` of them) scores its slice of the test
+set with its part of the model (``models.shard_model``), the rows are
+gathered, and every rank computes the same mAP; rank 0 prints and
+writes the detection files. int8 does not run on a tensor-parallel or
+spatial mesh.
 """
 
 from __future__ import annotations
@@ -27,8 +40,10 @@ import os
 
 import torch
 
+from .. import parallel
 from ..data import dataset_factory
 from ..infer import Detector
+from ..train import add_mesh_args, apply_mesh_args
 from ..utils.checkpoint import Checkpointer, load_odtpu_npz
 from ..utils.config import load_cfg, resolve_cfg_args
 from .evaluator import EvalVOC, eval_solver_factory
@@ -51,13 +66,17 @@ def parse_args(argv=None):
     p.add_argument("--output_dir", default="eval_out")
     p.add_argument("--quant", default="", choices=["", "int8"],
                    help="quantized serving compute (overrides TPU.QUANT)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="with --multihost, cuda is cuda:LOCAL_RANK")
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
 def setup(args):
     """The cfg ``args`` ask for; the caller may change it (a dataset
-    directory, say) before :func:`run`."""
+    directory, say) before :func:`run`. The mesh (``--mesh_model``,
+    ``--mesh_spatial``, in the process group of ``--multihost``) must make
+    up the world."""
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
@@ -65,6 +84,7 @@ def setup(args):
     cfg = load_cfg(resolve_cfg_args(args))
     if args.quant:
         cfg.TPU.QUANT = args.quant
+    apply_mesh_args(args, cfg)
     return cfg
 
 
@@ -92,15 +112,17 @@ def run(args, cfg) -> dict:
     state_dict, source = _weights(args, cfg)
     detector = Detector(cfg, state_dict=state_dict, device=args.device)
     res, maps = solver.validate(detector.step)
-    if isinstance(solver, EvalVOC):
-        for cls, ap, _, _ in res:
-            print("AP for {} = {:.4f}".format(cls, ap))
-    print("mAP:", maps)
-    print("timing:", solver.last_timing)
+    if parallel.is_main():
+        if isinstance(solver, EvalVOC):
+            for cls, ap, _, _ in res:
+                print("AP for {} = {:.4f}".format(cls, ap))
+        print("mAP:", maps)
+        print("timing:", solver.last_timing)
     return {"results": res, "maps": maps, "timing": solver.last_timing,
             "weights": source}
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    return run(args, setup(args))
+    with parallel.distributed(args):
+        return run(args, setup(args))

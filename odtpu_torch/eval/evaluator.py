@@ -14,12 +14,15 @@ last batches are padded to the loader's batch size, and a nonzero
 ``dropped`` count (per-class survivors the row cap discarded) is
 reported in ``last_timing`` and as a warning.
 
-In a process group each rank validates its slice of the test set (the
-loader's shard) with no collective inside the loop; at the end the rows
-are all-gathered (``parallel.allgather_host_rows``), each at its image's
+On a mesh each data index validates its slice of the test set (the
+loader's shard) with no collective of the evaluator's inside the loop
+(the sharded model's own run in its forward); at the end the rows are
+all-gathered (``parallel.allgather_host_rows``), each at its image's
 global dataset index, so that every rank scores the same mAP, and the
-image and ``dropped`` counts are summed over the ranks. Only rank 0
-writes the detection files.
+image and ``dropped`` counts are summed over the ranks. Every rank of a
+data index holds the same rows: only its leader (``m = 0, s = 0``)
+hands them over and counts them. Only rank 0 writes the detection
+files.
 """
 
 from __future__ import annotations
@@ -93,6 +96,8 @@ class EvalBase:
                                       indices=indices)
             n_images += valid
         self._gather_multihost()
+        if not parallel.is_data_leader():
+            n_images = n_dropped = 0
         n_images, n_dropped = parallel.sum_over_ranks(n_images, n_dropped)
         total = time.time() - t0
         self.last_timing = {"detect_s": t_detect, "total_s": total,
@@ -172,7 +177,8 @@ class EvalVOC(EvalBase):
         if parallel.world() == 1:
             return
         chunks = []
-        for cls in range(1, self.num_classes):
+        leader = parallel.is_data_leader()
+        for cls in range(1, self.num_classes if leader else 1):
             for pos, r in enumerate(self.results[cls]):
                 if r.size:
                     head = np.broadcast_to(
@@ -243,7 +249,8 @@ class EvalCOCO(EvalBase):
         if parallel.world() == 1:
             return
         local = (np.asarray(self.rows, np.float32).reshape(-1, 7)
-                 if self.rows else np.zeros((0, 7), np.float32))
+                 if self.rows and parallel.is_data_leader()
+                 else np.zeros((0, 7), np.float32))
         self.rows = [tuple(r) for r in parallel.allgather_host_rows(local)]
 
     def evaluate_stats(self, tb_writer=None):

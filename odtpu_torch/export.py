@@ -107,13 +107,14 @@ def export_artifact(out_path, cfg=None, cfg_path: str = "", ckpt: str = "",
     from .models.common import set_quant
     from .data.voc import VOC_CLASSES
     from .utils.checkpoint import load_strict
-    from .utils.config import load_cfg, resolve_cfg_args
+    from .utils.config import load_cfg, refuse_mesh, resolve_cfg_args
 
     if cfg is None:
         if cfg_path and not osp.isfile(cfg_path):
             # an artifact built from the wrong config fails silently
             raise FileNotFoundError("config not found: " + cfg_path)
         cfg = load_cfg(resolve_cfg_args(argparse.Namespace(cfg=cfg_path)))
+    refuse_mesh(cfg, "python -m odtpu_torch.export")
     cfg = copy.deepcopy(cfg)  # the mode never leaks into a caller's cfg
     if quant:
         cfg.TPU.QUANT = quant

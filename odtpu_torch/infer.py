@@ -25,11 +25,12 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .eval_step import make_eval_step
-from .models import model_factory
+from .models import model_factory, shard_model
 from .models.common import Conv
 from .utils.checkpoint import load_odtpu_npz, load_strict
-from .utils.config import CFGS, default_cfg, load_cfg
+from .utils.config import CFGS, default_cfg, load_cfg, refuse_mesh
 
 
 # the first conv of :func:`random_state_dict`, the one that sees the raw
@@ -63,7 +64,9 @@ class Detector:
 
     Weights come from ``state_dict`` as given (see
     :func:`odtpu_torch.utils.checkpoint.from_odtpu_params` and
-    :func:`random_state_dict`), else from the model's seeded init.
+    :func:`random_state_dict`), else from the model's seeded init, whole:
+    on a mesh each rank then keeps its part (``models.shard_model``);
+    outside a process group a ``cfg`` that asks for a mesh is refused.
     ``detector(images)`` takes uint8 BGR [B, H, W, 3] (numpy or tensor)
     and returns ``{"rows", "dropped"}`` on the device. ``quant`` ("" or
     "int8") overrides ``cfg.TPU.QUANT`` on a copy of ``cfg``; None serves
@@ -76,10 +79,15 @@ class Detector:
         if quant is not None:
             self.cfg = copy.deepcopy(self.cfg)
             self.cfg.TPU.QUANT = quant
+        if not parallel.initialized():
+            refuse_mesh(self.cfg, "odtpu_torch.infer's Detector (infer, "
+                        "serve, export and the demos)")
         self.device = torch.device(device)
         model, priors, _ = model_factory("eval", self.cfg, self.device, seed)
         if state_dict is not None:
             load_strict(model, state_dict)
+        # on a mesh (the eval command line's --multihost): this rank's part
+        shard_model(model, self.cfg)
         model.eval()
         if self.device.type == "cuda":
             # NHWC in memory: the NHWC->NCHW permute of the input is then

@@ -10,9 +10,14 @@ those dims.
 
 from __future__ import annotations
 
+import copy
+import functools
+
 import torch
 
+from .. import parallel
 from ..ops.priors import prior_factory
+from ..parallel import spatial
 from .common import Conv, L2Norm, set_quant
 from .drn import DRN, drn_d_22, drn_d_24
 from .drnssd import DRNSSD
@@ -28,7 +33,7 @@ __all__ = ["SSD", "VGG16", "L2Norm", "MultiBoxHead", "EXTRAS_SPEC",
            "probe_layer_dims", "model_factory", "init_weights",
            "BASE_REGISTRY", "SSD_REGISTRY", "FPN", "FSSD", "RFBNet",
            "RefineDet", "DRN", "DRNSSD", "drn_d_22", "drn_d_24",
-           "set_quant"]
+           "set_quant", "shard_model", "spatial_plan"]
 
 # float64 is the numerical reference that float32 runs are held to
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -202,3 +207,94 @@ def model_factory(phase, cfg, device="cuda", seed: int = 0):
     init_weights(model, seed)
     priors = torch.from_numpy(prior(layer_dims)).to(device)
     return model.to(device), priors, layer_dims
+
+
+def spatial_plan(cfg) -> spatial.Plan:
+    """The H-local ops of ``cfg``'s model, in order, with their global
+    heights at ``cfg.MODEL.IMAGE_SIZE``: a forward of the unsharded model
+    on the ``meta`` device under ``parallel.spatial.record``."""
+    h, w = cfg.MODEL.IMAGE_SIZE
+    with torch.device("meta"):
+        model, _ = create_model(copy.deepcopy(cfg))
+        model.eval()
+        with spatial.record(h) as plan:
+            model(torch.empty(1, h, w, 3), phase="train")
+    return plan
+
+
+def _mesh_of(cfg):
+    """The current mesh, checked against ``cfg.TPU``: the same sizes, and
+    no combination the port does not run sharded."""
+    mesh = parallel.current()
+    want = parallel.mesh_sizes(cfg, mesh.world)
+    if want != (mesh.data, mesh.model, mesh.spatial):
+        raise ValueError("cfg.TPU asks for a {} x {} x {} mesh; the run's is "
+                         "{} x {} x {} (parallel.make_mesh)".format(
+                             *want, mesh.data, mesh.model, mesh.spatial))
+    if mesh.sharded and str(cfg.TPU.QUANT or ""):
+        raise NotImplementedError(
+            "TPU.QUANT = {!r} on a mesh with MESH_MODEL or MESH_SPATIAL "
+            "above 1: int8 serving runs unsharded (odtpu's int8 convs do "
+            "not compile under a spatial mesh either; ROADMAP.md, Queue "
+            "1)".format(cfg.TPU.QUANT))
+    return mesh
+
+
+def shard_model(model: torch.nn.Module, cfg) -> torch.nn.Module:
+    """``model`` (full, with its weights) laid out on the current mesh, in
+    place; nothing to do unless MESH_MODEL or MESH_SPATIAL is above 1.
+
+    - MESH_MODEL = M: every :class:`Conv` of at least
+      ``parallel.mesh.TP_MIN_CHANNELS`` output channels divisible by M
+      keeps its model rank's block of them (``odtpu``'s
+      ``param_shardings`` rule on OIHW weights), with its bias and its
+      batch norm's scale, bias and running statistics, and runs
+      tensor-parallel (``Conv.tp``). The blocks are cut from the full
+      tensors the model holds, so the layout does not change the init.
+      ``model.tp_keys`` names the sharded tensors by state-dict key, with
+      their full size (``parallel.full_state_dict``, ``block_of``).
+      Everything else, L2Norm's scales and FSSD's ``fusion_bn`` among it,
+      is replicated and sees gathered maps.
+    - MESH_SPATIAL = S: the forward takes the full batch of images and
+      runs on this rank's rows (``parallel.spatial.sharded_forward``
+      over :func:`spatial_plan`'s plan); its outputs are whole.
+    """
+    mesh = _mesh_of(cfg)
+    if not mesh.sharded:
+        return model
+    if mesh.model > 1:
+        tp = {}
+        n_model, m = mesh.model, mesh.m
+        for name, mod in model.named_modules():
+            if not isinstance(mod, Conv):
+                continue
+            out = mod.conv.out_channels
+            if out < parallel.mesh.TP_MIN_CHANNELS or out % n_model:
+                continue
+            n = out // n_model
+            block = slice(m * n, (m + 1) * n)
+            owners = [(mod.conv, ("weight", "bias"))]
+            if mod.bn is not None:
+                owners.append((mod.bn, ("weight", "bias", "running_mean",
+                                        "running_var")))
+            for owner, attrs in owners:
+                prefix = name + (".conv." if owner is mod.conv else ".bn.")
+                for attr in attrs:
+                    t = getattr(owner, attr)
+                    if t is None:
+                        continue
+                    cut = t.data[block].clone()
+                    setattr(owner, attr, torch.nn.Parameter(
+                        cut, t.requires_grad) if isinstance(
+                            t, torch.nn.Parameter) else cut)
+                    tp[prefix + attr] = out
+            mod.conv.out_channels = n
+            if mod.bn is not None:
+                mod.bn.num_features = n
+            mod.tp = True
+        model.tp_keys = tp
+    if mesh.spatial > 1:
+        model.spatial_plan = spatial_plan(cfg)
+        model.forward = functools.partial(spatial.sharded_forward, model,
+                                          type(model).forward)
+    return model

@@ -24,6 +24,7 @@ from torch import Tensor, nn
 
 from .. import parallel
 from ..ops import quant
+from ..parallel import spatial
 from ..ops.cuda import batch_norm as bn_ops
 
 # the serving modes of ``TPU.QUANT``: off, or dynamic int8
@@ -80,26 +81,28 @@ def batch_norm(bn: BatchNorm2d, x: Tensor, dtype: torch.dtype) -> Tensor:
     autograd through them, as flax's are: the variance is 0 and the
     output the bias.
 
-    In a process group of several ranks the statistics are the global
-    batch's, as flax's are under ``odtpu``'s sharded batch: the direct
-    computation with its two sums taken over the ranks (the mean, then
-    the biased variance about it) by a differentiable all-reduce, so that
-    each rank's loss reaches every rank's inputs through them. Every rank
-    holds the same count of values a channel (the same local batch).
+    On a mesh (``parallel``) the statistics are the global batch's, as
+    flax's are under ``odtpu``'s sharded batch: the direct computation
+    with the sums, the squared deviations about the mean and the counts
+    of values a channel taken over the replica group (the data indices'
+    batches and the spatial ranks' rows of this rank's channels) by a
+    differentiable all-reduce, so that each rank's share of the loss
+    reaches every rank's inputs through them. A rank may hold no rows.
     """
     if not bn.training:
         return bn(x).to(dtype)
     x = float32_or_wider(x)
     weight, bias = bn.weight.to(x.dtype), bn.bias.to(x.dtype)
-    n = x.numel() // x.shape[1]
-    world = parallel.world()
-    if world > 1:
-        count = n * world
-        mean = parallel.all_reduce_sum(
-            x.sum((0, 2, 3), keepdim=True)) / count
+    c = x.shape[1]
+    n = x.numel() // c
+    if parallel.axis_size("replica") > 1:
+        sums = parallel.all_reduce_sum(torch.cat([x.sum((0, 2, 3)),
+                                                  x.new_full((1,), n)]))
+        count = sums[c]
+        mean = (sums[:c] / count).view(1, c, 1, 1)
         xc = x - mean
-        var = parallel.all_reduce_sum(
-            xc.square().sum((0, 2, 3), keepdim=True)) / count
+        var = (parallel.all_reduce_sum(xc.square().sum((0, 2, 3)))
+               / count).view(1, c, 1, 1)
         mul = torch.rsqrt(var + bn.eps) * weight[:, None, None]
         y = torch.addcmul(bias[:, None, None], xc, mul)
     elif n > 1:
@@ -190,6 +193,13 @@ class Conv(nn.Module):
     (``rfbnet.BasicConv``) 0.01. ``kernel`` and ``padding`` take an int or
     an (h, w) pair. ``quantizable=False`` keeps the conv in the compute
     dtype under int8 serving (the loc/conf heads, as ``odtpu``'s).
+
+    On a mesh (``parallel``) ``tp`` marks a conv that holds its model
+    rank's block of output channels (``models.shard_model``): its input
+    passes ``parallel.to_model_group`` and its output, after the bias,
+    the norm and the ReLU, ``parallel.gather_model_group``. Under a
+    spatial plan the conv computes its rank's rows
+    (``parallel.spatial.conv2d``).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel=3, stride: int = 1,
@@ -211,11 +221,14 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.quantizable = quantizable
         self.quant = ""  # set model-wide by set_quant
+        self.tp = False  # set by models.shard_model
         # the int8 weight operand, made once per version of the weight
         self.int8_cache = {}
 
     def forward(self, x: Tensor) -> Tensor:
         c = self.conv
+        if self.tp:
+            x = parallel.to_model_group(x)
         bias = None if c.bias is None else c.bias.to(self.dtype)
         if self.quant and self.quantizable:
             # x as it arrives, not cast: odtpu's _QuantConv quantizes the
@@ -225,11 +238,13 @@ class Conv(nn.Module):
             if bias is not None:
                 x = x + bias[:, None, None]
         else:
-            x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), bias,
-                         c.stride, c.padding, c.dilation)
+            x = spatial.conv2d(x.to(self.dtype), c.weight.to(self.dtype),
+                               bias, c.stride, c.padding, c.dilation)
         if self.bn is not None:
             x = batch_norm(self.bn, x, self.dtype)
-        return F.relu(x) if self.relu else x
+        if self.relu:
+            x = F.relu(x)
+        return parallel.gather_model_group(x) if self.tp else x
 
 
 def quant_mode(mode) -> str:
@@ -281,5 +296,6 @@ class L2Norm(nn.Module):
 def max_pool_ceil(x: Tensor, window: int = 2, stride: int = 2,
                   padding: int = 0, ceil_mode: bool = False) -> Tensor:
     """Max pool with explicit -inf padding and ceil mode (partial windows
-    at the bottom/right count: reference vgg pool3, 75 -> 38)."""
-    return F.max_pool2d(x, window, stride, padding, ceil_mode=ceil_mode)
+    at the bottom/right count: reference vgg pool3, 75 -> 38); under a
+    spatial plan, this rank's rows (``parallel.spatial.max_pool2d``)."""
+    return spatial.max_pool2d(x, window, stride, padding, ceil_mode)

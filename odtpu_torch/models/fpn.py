@@ -19,6 +19,7 @@ import torch
 from torch import Tensor, nn
 
 from ..ops.detect import ssd_decode
+from ..parallel import spatial
 from .common import Conv, float32_or_wider
 from .ssd import MultiBoxHead, build_trunk, outputs, run_trunk
 
@@ -54,13 +55,17 @@ def upsample_bilinear(x: Tensor, size) -> Tensor:
 
     As ``odtpu``'s: the interpolation matrices of the two sides applied
     as two products in float32 (or wider), cast back to ``x``'s dtype;
-    the same size returns ``x``."""
-    h, w = x.shape[2], x.shape[3]
-    oh, ow = int(size[0]), int(size[1])
+    the same size returns ``x``. Under a spatial plan the H matrix is
+    over the map's global rows: this rank's output rows read the input
+    rows they weigh, fetched (``parallel.spatial.resize_input``), and
+    ``size``'s height, a slab's, is not read."""
+    h, oh = spatial.heights(x, int(size[0]))
+    w, ow = x.shape[3], int(size[1])
     if (oh, ow) == (h, w):
         return x
     xf = float32_or_wider(x)
-    wh = _weights(h, oh, x.device).to(xf.dtype)
+    wh, xf = spatial.resize_input(xf, h, oh,
+                                  _weights(h, oh, x.device).to(xf.dtype))
     ww = _weights(w, ow, x.device).to(xf.dtype)
     return torch.matmul(torch.matmul(wh, xf), ww.t()).to(x.dtype)
 

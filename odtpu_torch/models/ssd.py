@@ -18,6 +18,7 @@ import torch
 from torch import Tensor, nn
 
 from ..ops.detect import ssd_decode
+from ..parallel import spatial
 from .common import Conv, L2Norm, float32_or_wider
 
 EXTRAS_SPEC = {
@@ -45,7 +46,10 @@ def parse_extras(spec: Sequence):
 
 def flatten_head(x: Tensor, width: int) -> Tensor:
     """A head's NCHW output [B, A*width, H, W] -> [B, H*W*A, width], in
-    the priors' order: cell-major, anchor-minor."""
+    the priors' order: cell-major, anchor-minor. Under a spatial plan
+    the rows of every rank are gathered first
+    (``parallel.spatial.gather_rows``), so that the order is global."""
+    x = spatial.gather_rows(x)
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, width)
 
 

@@ -39,7 +39,7 @@ from .data.image import imdecode
 from .data.voc import VOC_CLASSES
 from .infer import Detector, random_state_dict
 from .utils.checkpoint import load_odtpu_npz
-from .utils.config import CFGS, load_cfg, resolve_cfg_args
+from .utils.config import CFGS, load_cfg, refuse_mesh, resolve_cfg_args
 
 MAX_BYTES = 32 * 1024 * 1024
 
@@ -56,6 +56,7 @@ def build_engine(cfg, npz: str = "", quant: str = "", device="cuda",
     ``quant`` ("int8"), where given, overrides ``cfg.TPU.QUANT``; both
     changes go to a copy of ``cfg``. It warms up once before it
     returns."""
+    refuse_mesh(cfg, "python -m odtpu_torch.serve")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "

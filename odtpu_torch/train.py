@@ -41,26 +41,31 @@ they need the ``tensorboard`` package, else nothing is written):
 ``SHOW_PR_CURVE`` VOC's per-class PR curves; ``SHOW_SALIENCY`` is
 ``python -m odtpu_torch.train_debug``'s.
 
-Data parallelism over N cards, one process a card (``train.py:49-51``,
-``:118-121``)::
+Over N cards, one process a card (``train.py:49-51``, ``:118-121``),
+on a ``(data, model, spatial)`` mesh of N ranks::
 
     python -m torch.distributed.run --nproc_per_node N \
-        -m odtpu_torch.train --multihost --cfg_name ssd_vgg16_voc ...
+        -m odtpu_torch.train --multihost --cfg_name ssd_vgg16_voc \
+        [--mesh_model M] [--mesh_spatial S] ...
 
 ``--multihost`` joins the process group that ``torch.distributed.run``
-describes (NCCL; ``--device cuda`` is ``cuda:LOCAL_RANK``), and each
-rank loads its slice of the data with its share of
+describes (NCCL; ``--device cuda`` is ``cuda:LOCAL_RANK``).
+``--mesh_model`` and ``--mesh_spatial`` set ``TPU.MESH_MODEL`` (each
+conv of at least 512 output channels split over M ranks) and
+``TPU.MESH_SPATIAL`` (every map's rows split over S ranks); the data
+axis takes the rest, D = N / (M * S) (``parallel.make_mesh``). Each data
+index loads its slice of the data with its share of
 ``TRAIN_BATCH_SIZE``, the global batch. A step of N ranks is the
-one-process step on the global batch (``train_step``); every rank
-validates its slice and scores the global mAP; rank 0 writes the
-checkpoints, TensorBoard, the trace and the per-step lines.
+one-process step on the global batch (``train_step``); every data index
+validates its slice and every rank scores the global mAP; rank 0 writes
+the checkpoints (full tensors, gathered), TensorBoard, the trace and the
+per-step lines.
 ``--max_rss_gb`` (a TPU host's memory guard) is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import shutil
@@ -132,11 +137,11 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     dropped count, the checkpoint steps on disk and the
     :class:`~odtpu_torch.train_step.TrainState`.
 
-    In a process group (``parallel``) every rank calls it with its own
-    loader shard and evaluator: the steps are the global batch's, the
-    ranks start from rank 0's weights, every rank validates, and only
-    rank 0 prints, writes checkpoints, TensorBoard and the trace. The
-    images/s are the global batch's.
+    On a mesh (``parallel``) every rank calls it with its data index's
+    loader shard and its evaluator: the steps are the global batch's, the
+    ranks start from the weights of the ranks at ``d = 0, s = 0``, every
+    rank validates, and only rank 0 prints, writes checkpoints,
+    TensorBoard and the trace. The images/s are the global batch's.
     """
     device = torch.device(device)
     out_dir = Path(out_dir)
@@ -192,7 +197,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                 m = {k: float(v) for k, v in pending[1].items()}
                 now = time.time()
                 ips = ((pending[0] - last_log_iter)
-                       * batch["images"].shape[0] * parallel.world()
+                       * batch["images"].shape[0] * parallel.data_world()
                        / max(now - last_log_time, 1e-9))
                 last_log_iter, last_log_time = pending[0], now
                 out["losses"].append({"step": pending[0], **m, "ips": ips})
@@ -263,35 +268,43 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of steps 11-20 there")
     p.add_argument("--device", default="cuda",
                    help="with --multihost, cuda is cuda:LOCAL_RANK")
-    p.add_argument("--multihost", action="store_true",
-                   help="data parallelism over the processes that python -m "
-                        "torch.distributed.run starts, one a card: each "
-                        "loads its slice of the data")
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
-@contextlib.contextmanager
-def distributed(args):
-    """With ``args.multihost``: join ``torch.distributed.run``'s process
-    group (``args.device`` becomes this rank's card), print ``process
-    r/w``, and leave the group when the block ends. Without it:
-    nothing."""
-    if not args.multihost:
-        yield
-        return
-    args.device = str(parallel.init_distributed(args.device))
-    print("process {}/{}".format(parallel.rank(), parallel.world()),
-          flush=True)
-    try:
-        yield
-    finally:
-        parallel.shutdown()
+def add_mesh_args(p) -> None:
+    """``--multihost`` and the mesh's sizes, for the train and eval
+    command lines."""
+    p.add_argument("--multihost", action="store_true",
+                   help="run over the processes that python -m "
+                        "torch.distributed.run starts, one a card, on a "
+                        "(data, model, spatial) mesh: each data index "
+                        "loads its slice of the data")
+    p.add_argument("--mesh_model", type=int, default=0,
+                   help="TPU.MESH_MODEL: ranks that split each conv of at "
+                        "least 512 output channels (default: the cfg's, 1)")
+    p.add_argument("--mesh_spatial", type=int, default=0,
+                   help="TPU.MESH_SPATIAL: ranks that split every map's "
+                        "rows (default: the cfg's, 1)")
+
+
+def apply_mesh_args(args, cfg) -> None:
+    """Set ``cfg.TPU.MESH_MODEL`` and ``MESH_SPATIAL`` from the command
+    line (the port reads no yml that could set them), then lay out the
+    run's mesh (``parallel.make_mesh``): the sizes must make up the
+    world."""
+    if args.mesh_model:
+        cfg.TPU.MESH_MODEL = args.mesh_model
+    if args.mesh_spatial:
+        cfg.TPU.MESH_SPATIAL = args.mesh_spatial
+    parallel.make_mesh(cfg, args.device)
 
 
 def setup(args):
     """(cfg, out_dir, log_dir) of the run ``args`` ask for; the caller may
-    change the cfg (a dataset directory, say) before :func:`run`. In a
-    process group (:func:`distributed`) the cfg's mesh must fit it."""
+    change the cfg (a dataset directory, say) before :func:`run`. The
+    mesh (``--mesh_model``, ``--mesh_spatial``, in the process group of
+    ``parallel.distributed``) must make up the world."""
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
@@ -299,7 +312,7 @@ def setup(args):
     cfg = load_cfg(resolve_cfg_args(args))
     if args.max_iter:
         cfg.TRAIN.MAX_ITER = args.max_iter
-    parallel.make_mesh(cfg, args.device)
+    apply_mesh_args(args, cfg)
     out = args.output_dir or os.path.join(cfg.GENERAL.WEIGHTS_ROOT,
                                           args.job_group, args.cfg_name)
     if os.path.isdir(out) and os.listdir(out) and parallel.is_main() \
@@ -382,7 +395,7 @@ def backup_jobs(cfg, out_dir, log_dir, args) -> str:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    with distributed(args):
+    with parallel.distributed(args):
         return run(args, *setup(args))
 
 

@@ -34,7 +34,7 @@ from .data import dataset_factory
 from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
 from .train_step import create_train_state, make_train_step
-from .utils.config import load_cfg, resolve_cfg_args
+from .utils.config import load_cfg, refuse_mesh, resolve_cfg_args
 from .utils.logging import TBWriter
 from .utils.visualize import viz_grads
 
@@ -92,7 +92,9 @@ def run(cfg, device="cuda", out_dir="debug_eval_out",
     ``tb_writer``, else a TBWriter under ``<out_dir>/tb``), one eval pass.
     Returns the step's metrics, the saliency's raw gradients and input
     image (None without the flag), the mAP, the eval timing and the
-    train state."""
+    train state. One process: a ``cfg`` that asks for a mesh is
+    refused."""
+    refuse_mesh(cfg, "python -m odtpu_torch.train_debug")
     state, priors = create_train_state(cfg, device)
     step_fn = make_train_step(priors, cfg)
     eval_fn = make_eval_step(state.model, priors, cfg)

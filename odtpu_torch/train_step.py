@@ -36,20 +36,29 @@ device:
   statistics move once, in the first forward
   (``models.common.recomputing``).
 
-In a process group (``parallel``) the step is ``odtpu``'s step on the
-global batch, the concatenation of the ranks' batches in rank order:
+On a mesh (``parallel``) the step is ``odtpu``'s step on the global
+batch, the concatenation of the data indices' batches in order; every
+rank of one data index holds the same images:
 
 - the photometric parameters are drawn for the global batch and each
-  rank takes its block of rows (:meth:`TrainStep.aug_params`);
+  data index takes its block of rows (:meth:`TrainStep.aug_params`);
 - every ``max(num_pos, 1)`` is the global count (the positives summed
-  over the ranks), so each rank's loss is its share of the global loss,
-  and the reported metrics are the global ones on every rank;
-- train-mode batch norm takes the global batch's statistics
-  (``models.common.batch_norm``);
-- the gradients are summed over the ranks by one all-reduce of a flat
-  buffer (:meth:`TrainStep.backward`) before the clip and the update,
-  which then run as in one process. Hard-negative mining stays per
-  image.
+  over the data group), so each data index's loss is its share of the
+  global loss, and the reported metrics are the global ones on every
+  rank;
+- the model is laid out on the mesh (``models.shard_model``: the wide
+  convs' output channels over the model axis, the images' rows over the
+  spatial axis, its outputs whole on every rank), and train-mode batch
+  norm takes the global batch's statistics (``models.common.batch_norm``);
+- the gradients are summed over the replica group by one all-reduce of
+  a flat buffer (:meth:`TrainStep.backward`) before the clip and the
+  update, which then run as in one process, the clip's norm counting a
+  sharded tensor's blocks once each (:func:`clip_by_global_norm`).
+  Hard-negative mining stays per image.
+
+``TPU.REMAT`` with MESH_MODEL or MESH_SPATIAL above 1 is refused: its
+recompute would run the row exchanges again inside the backward
+(ROADMAP.md, Queue 1).
 
 Training covers every family of the zoo.
 """
@@ -67,7 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from . import parallel
 from .data.device_aug import draw_params, preprocess_train_batch
 from .layers.losses import multibox_loss, refinedet_loss, repulsion_loss
-from .models import compute_dtype, model_factory
+from .models import compute_dtype, model_factory, shard_model
 from .models.common import recomputing
 
 
@@ -110,13 +119,27 @@ def make_optimizer(params, cfg) -> torch.optim.Optimizer:
 
 
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm: float) -> Tensor:
+def clip_by_global_norm(params, max_norm: float, sharded=()) -> Tensor:
     """Scale every gradient by ``max_norm / norm`` when the global norm is
     above ``max_norm`` (optax's form: ``g / norm * max``, no epsilon);
     returns the norm. A few multi-tensor kernels, whatever the count of
-    tensors; nothing waits for the device."""
+    tensors; nothing waits for the device. The ``sharded`` parameters
+    hold a model rank's block (``parallel.sharded_params``): their
+    squares are summed over the model group, the replicated ones counted
+    once."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if sharded:
+        ids = {id(p) for p in sharded}
+        blocks = [p.grad for p in params if id(p) in ids]
+        whole = [p.grad for p in params
+                 if p.grad is not None and id(p) not in ids]
+        sq = parallel.axis_sum(torch.stack(torch._foreach_norm(
+            blocks)).square().sum(), "model")
+        sq = sq + torch.stack(torch._foreach_norm(whole)).square().sum()
+        norm = torch.sqrt(sq)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
     keep = norm < max_norm
     # x / 1 * 1 is x: the gradients are left as they are when kept
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
@@ -134,8 +157,17 @@ class TrainState:
 
 
 def create_train_state(cfg, device="cuda", seed: int = 0):
-    """(TrainState with seeded weights on ``device``, priors [P, 4])."""
+    """(TrainState with seeded weights on ``device``, priors [P, 4]); on
+    a mesh the model is laid out on it (``models.shard_model``) before
+    the optimizer takes its parameters, so that each momentum follows
+    its parameter's layout."""
+    if bool(cfg.TPU.REMAT) and parallel.current().sharded:
+        raise NotImplementedError(
+            "TPU.REMAT with MESH_MODEL or MESH_SPATIAL above 1: the "
+            "recompute would run the mesh's exchanges again inside the "
+            "backward (ROADMAP.md, Queue 1); odtpu runs it")
     model, priors, _ = model_factory("train", cfg, device, seed)
+    shard_model(model, cfg)
     model.train()
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -180,13 +212,14 @@ class TrainStep:
         self.sync = parallel.initialized()
 
     def aug_params(self, batch: int, step: int) -> dict:
-        """The photometric parameters of update ``step`` for this rank's
-        ``batch`` images: drawn for the global batch from a generator on
-        the device seeded by (17, step), and this rank's rows of them."""
+        """The photometric parameters of update ``step`` for this data
+        index's ``batch`` images: drawn for the global batch from a
+        generator on the device seeded by (17, step), and this data
+        index's rows of them."""
         g = torch.Generator(device=self.device)
         g.manual_seed((17 << 32) + int(step))
-        return parallel.local_rows(draw_params(batch * parallel.world(), g),
-                                   batch)
+        return parallel.local_rows(
+            draw_params(batch * parallel.data_world(), g), batch)
 
     def augment(self, images: Tensor, step: int,
                 aug_params: dict | None = None) -> Tensor:
@@ -219,25 +252,25 @@ class TrainStep:
     def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
              step: int) -> dict:
         """The metrics of :meth:`forward`'s ``outputs`` at update ``step``
-        (the count of updates already made). In a process group the
-        losses are this rank's sums over the global counts, and
-        ``num_pos`` is the global count."""
+        (the count of updates already made). On a mesh the losses are
+        this data index's sums over the global counts, and ``num_pos`` is
+        the global count."""
         if self.refinedet:
             r = refinedet_loss(*outputs, self.priors, boxes, labels,
                                self.variances, self.overlap, self.negpos,
                                use_refined=step >= self.odm_warm)
             loss_l = loss_c = 0.0
             for part in r:
-                n = torch.clamp(parallel.global_sum(part.num_pos),
+                n = torch.clamp(parallel.data_sum(part.num_pos),
                                 min=1).float()
                 loss_l = loss_l + self.loc_w * part.loss_loc_sum / n
                 loss_c = loss_c + part.loss_conf_sum / n
             return {"loss": loss_l + loss_c, "loss_loc": loss_l,
                     "loss_conf": loss_c,
-                    "num_pos": parallel.global_sum(r.odm.num_pos)}
+                    "num_pos": parallel.data_sum(r.odm.num_pos)}
         out = multibox_loss(*outputs, self.priors, boxes, labels,
                             self.variances, self.overlap, self.negpos)
-        num_pos = parallel.global_sum(out.num_pos)
+        num_pos = parallel.data_sum(out.num_pos)
         n = torch.clamp(num_pos, min=1).float()
         loss_l = out.loss_loc_sum / n
         loss_c = out.loss_conf_sum / n
@@ -246,7 +279,7 @@ class TrainStep:
         if self.rep_w > 0:
             rep_sum, rep_n = repulsion_loss(outputs[0], self.priors, boxes,
                                             labels, self.variances)
-            loss_rep = rep_sum / torch.clamp(parallel.global_sum(rep_n),
+            loss_rep = rep_sum / torch.clamp(parallel.data_sum(rep_n),
                                              min=1).float()
             metrics["loss"] = metrics["loss"] + self.rep_w * loss_rep
             metrics["loss_repul"] = loss_rep
@@ -263,16 +296,20 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.sync:
-            parallel.all_reduce_grads(params)
+            parallel.all_reduce_grads(params,
+                                      parallel.sharded_params(state.model))
 
     def update(self, state: TrainState) -> None:
         if self.clip > 0:
             clip_by_global_norm([p for group in state.optimizer.param_groups
-                                 for p in group["params"]], self.clip)
+                                 for p in group["params"]], self.clip,
+                                parallel.sharded_params(state.model))
         lr = self.sched(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
+        if self.sync:
+            parallel.sync_replicated_buffers(state.model)
         state.step += 1
 
     def __call__(self, state: TrainState, images: Tensor, boxes: Tensor,
@@ -287,13 +324,13 @@ class TrainStep:
         return self.report(metrics)
 
     def report(self, metrics: dict) -> dict:
-        """:meth:`loss`'s metrics, detached; in a process group the
-        losses are summed over the ranks (each rank's is its share of the
+        """:meth:`loss`'s metrics, detached; on a mesh the losses are
+        summed over the data group (each data index's is its share of the
         global loss), so every rank reports the global ones."""
         out = {k: v.detach() for k, v in metrics.items()}
         if self.sync:
             keys = [k for k in out if k != "num_pos"]
-            summed = parallel.global_sum(torch.stack([out[k] for k in keys]))
+            summed = parallel.data_sum(torch.stack([out[k] for k in keys]))
             out.update(zip(keys, summed.unbind()))
         return out
 

@@ -17,8 +17,13 @@ are ``running_mean`` and ``running_var``.
 ``Checkpointer``: ``torch.save`` of the model, the optimizer and the
 step, one file per step under the run's ``ckpt/`` directory, the newest
 ``max_to_keep`` kept. In a process group rank 0 writes and every rank
-waits for it; every rank restores (the train loop then broadcasts rank
-0's weights).
+waits for it; every rank restores (the train loop then broadcasts the
+weights of the ranks at ``d = 0, s = 0``). A tensor-parallel model
+(``models.shard_model``) is saved whole: every rank takes part in
+gathering its blocks (``parallel.full_state_dict``), and rank 0 writes
+full tensors in the same format, so that a checkpoint loads at any
+layout; a restore, ``--basenet`` and :func:`load_model_npz` read full
+tensors and keep the rank's block (``parallel.block_of``).
 """
 
 from __future__ import annotations
@@ -141,12 +146,13 @@ def load_odtpu_npz(path, model: nn.Module | None = None) -> dict:
 
 def _merge(model: nn.Module, pairs) -> tuple[list, list]:
     """Load the (npz key, state-dict key, tensor) ``pairs`` whose key and
-    shape match ``model``'s; returns (loaded, skipped) npz keys."""
-    want = model.state_dict()
+    full shape match ``model``'s (the rank's block of a tensor-parallel
+    one); returns (loaded, skipped) npz keys."""
+    want = parallel.full_shapes(model)
     loaded, skipped, sd = [], [], {}
     for npz_key, key, value in pairs:
-        if key in want and want[key].shape == value.shape:
-            sd[key] = value
+        if key in want and want[key] == tuple(value.shape):
+            sd[key] = parallel.mesh.block_of(model, key, value)
             loaded.append(npz_key)
         else:
             skipped.append(npz_key)
@@ -235,20 +241,28 @@ class Checkpointer:
     def save(self, step: int, state, force: bool = False) -> bool:
         """Write ``state`` as step ``step``; a step already on disk is
         kept unless ``force``. Returns whether it wrote. In a process
-        group only rank 0 writes, and every rank returns once it has."""
-        wrote = parallel.is_main() and self._write(int(step), state, force)
+        group only rank 0 writes, and every rank returns once it has; a
+        tensor-parallel model's blocks are gathered on every rank
+        first."""
+        payload = None
+        if parallel.tp_keys(state.model):
+            payload = {"model": parallel.full_state_dict(state.model),
+                       "optimizer": parallel.full_optimizer_state(
+                           state.model, state.optimizer)}
+        wrote = parallel.is_main() and self._write(int(step), state, force,
+                                                   payload)
         parallel.barrier()
         return wrote
 
-    def _write(self, step: int, state, force: bool) -> bool:
+    def _write(self, step: int, state, force: bool, payload=None) -> bool:
         path = self.path(step)
         if path.is_file() and not force:
             return False
         self.directory.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".pt.{}.tmp".format(os.getpid()))
-        torch.save({"step": int(state.step),
-                    "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()}, tmp)
+        payload = payload or {"model": state.model.state_dict(),
+                              "optimizer": state.optimizer.state_dict()}
+        torch.save({"step": int(state.step), **payload}, tmp)
         os.replace(tmp, path)  # a reader sees the old file or the new one
         for old in self.all_steps()[:-self.max_to_keep]:
             self.path(old).unlink(missing_ok=True)
@@ -267,9 +281,14 @@ class Checkpointer:
 
     def restore(self, state, step: int | None = None):
         """Load step ``step`` (default: the latest) into ``state`` in place
-        and return it."""
+        and return it; a tensor-parallel model takes its blocks of the
+        full tensors."""
         data = self.read(step, next(state.model.parameters()).device)
-        state.model.load_state_dict(data["model"], strict=True)
-        state.optimizer.load_state_dict(data["optimizer"])
+        model, opt = state.model, state.optimizer
+        state.model.load_state_dict(
+            parallel.block_state_dict(model, data["model"]), strict=True)
+        state.optimizer.load_state_dict(
+            parallel.block_optimizer_state(model, opt, data["optimizer"])
+            if parallel.tp_keys(model) else data["optimizer"])
         state.step = int(data["step"])
         return state

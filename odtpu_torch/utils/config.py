@@ -60,10 +60,10 @@ def _defaults() -> AttrDict:
     # per-image activation and per-channel weight quantization onto the
     # s8 tensor cores (ops/quant.py); training is unaffected, and any
     # float32 checkpoint serves int8 as it is. MESH_* are odtpu's mesh
-    # axes: MESH_DATA is the count of data-parallel processes (-1: every
-    # process of the run, ``parallel.make_mesh``); the tensor-parallel
-    # MESH_MODEL and the H-sharding MESH_SPATIAL are not ported and must
-    # stay 1 (``check_mesh``)
+    # axes over the processes of a run (``parallel.make_mesh``): MESH_DATA
+    # data indices (-1: what the other two leave), MESH_MODEL ranks that
+    # split each wide conv's output channels, MESH_SPATIAL ranks that
+    # split every map's rows (``check_mesh``)
     C.TPU = AttrDict(COMPUTE_DTYPE="bfloat16", REMAT=False, QUANT="",
                      MESH_DATA=-1, MESH_MODEL=1, MESH_SPATIAL=1)
 
@@ -159,16 +159,32 @@ def update_cfg(c: AttrDict) -> AttrDict:
 
 
 def check_mesh(c: AttrDict) -> None:
-    """Refuse the mesh axes the port does not have: ``TPU.MESH_MODEL``
-    (output-channel tensor parallelism) and ``TPU.MESH_SPATIAL`` (images
-    sharded along H) other than 1 (-1 and None mean 1, as in odtpu)."""
+    """Validate the mesh axes: ``TPU.MESH_MODEL`` and ``TPU.MESH_SPATIAL``
+    positive integers (-1 and None mean 1, as in odtpu), ``MESH_DATA`` a
+    positive integer or -1/None (whatever the other two leave). Whether
+    they make up the world is ``parallel.make_mesh``'s check."""
+    for key in ("MESH_DATA", "MESH_MODEL", "MESH_SPATIAL"):
+        value = c.TPU[key]
+        if value in (None, -1):
+            continue
+        if isinstance(value, bool) or not isinstance(value, int) \
+                or value < 1:
+            raise ValueError("TPU.{} = {!r}: want a positive integer, or "
+                             "-1".format(key, value))
+
+
+def refuse_mesh(c: AttrDict, entry: str) -> None:
+    """Raise when ``c`` asks an entry point that runs in one process
+    (``entry``) for a mesh: ``TPU.MESH_MODEL`` or ``MESH_SPATIAL`` above
+    1 needs the processes of ``python -m torch.distributed.run``."""
     for key in ("MESH_MODEL", "MESH_SPATIAL"):
         value = c.TPU[key]
         if value not in (None, -1, 1):
-            raise NotImplementedError(
-                "TPU.{} = {}: odtpu_torch runs data parallelism only; "
-                "tensor-parallel and spatial meshes are not ported yet "
-                "(ROADMAP.md, Queue 1)".format(key, value))
+            raise ValueError(
+                "TPU.{} = {}: {} runs in one process; a tensor-parallel or "
+                "spatial mesh runs under python -m torch.distributed.run "
+                "with odtpu_torch.train or odtpu_torch.eval --multihost"
+                .format(key, value, entry))
 
 
 # SSD512's prior spec, shared by its VOC, COCO and RFBNet512 ymls
