@@ -274,7 +274,8 @@ from odtpu_torch.data.loader import DetLoader, NetworkInput
 from odtpu_torch.data.voc import VOC_CLASSES, VOCDetection
 from odtpu_torch.demo import detect_img, live
 from odtpu_torch.eval import cli
-from odtpu_torch.eval.evaluator import EvalVOC, eval_solver_factory
+from odtpu_torch.eval.evaluator import (EvalVOC, dense_to_rows,
+                                        eval_solver_factory)
 from odtpu_torch.infer import (Detector, power_limit, random_images,
                                random_state_dict)
 from odtpu_torch.layers.losses import repulsion_loss
@@ -751,6 +752,49 @@ def dense_contract(step, loc, conf, label, calls=5):
             "kept": int((dense[..., 0] > 0).sum()), "equal_cpu": True}
 
 
+def eval_dense(det, images, batches=5):
+    """The eval step's dense contract (``EVAL.COMPACT = False``) on the
+    served batch, ``batches`` times with the counts reset just before and
+    read just after: one ``nms_rows`` launch a batch and no ``nms_mask``;
+    its dense result as rows (``dense_to_rows``) holds every row of the
+    compact path's, and as many more survivors as the compact path
+    reports ``dropped``; ms a batch beside the compact path's."""
+    step = eval_step.make_eval_step(det.model, det.step.priors, det.cfg,
+                                    compact=False)
+    det(images)
+    step(images)
+    reset_counts()
+    for _ in range(batches):
+        dense = step(images)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != {"nms_mask": 0, "nms_rows": batches}:
+        raise AssertionError("{} dense eval batches made NMS launches {}; "
+                             "want one nms_rows a batch".format(batches,
+                                                                launches))
+    compact = det(images)
+    rows = compact["rows"].cpu().numpy()
+    every = dense_to_rows(dense.cpu().numpy())
+    missing, extra = 0, 0
+    for b in range(rows.shape[0]):
+        kept = {tuple(r) for r in rows[b][rows[b][:, 0] > 0]}
+        survivors = {tuple(r) for r in every[b][every[b][:, 0] > 0]}
+        missing += len(kept - survivors)
+        extra += len(survivors) - len(kept)
+    dropped = int(compact["dropped"].sum())
+    if missing or extra != dropped:
+        raise AssertionError("dense contract: {} compact rows missing, {} "
+                             "more survivors against {} dropped".format(
+                                 missing, extra, dropped))
+    return {"batch": int(images.shape[0]), "shape": list(dense.shape),
+            "launches": launches, "rows_missing": missing,
+            "survivors": int((every[..., 0] > 0).sum()),
+            "compact_rows": int((rows[..., 0] > 0).sum()),
+            "dropped": dropped,
+            "ms": cuda_ms(lambda: step(images), 5),
+            "compact_ms": cuda_ms(lambda: det(images), 5)}
+
+
 def serve(label, cfg, warmup, batches, quant_mode=None):
     """Serve seeded uint8 batches of ``BATCH`` images of ``cfg`` through
     ``Detector(quant=quant_mode)`` on the card, the counts reset just
@@ -831,6 +875,7 @@ def phase_main_path(dtype, warmup=3, batches=20):
               "nms_launches": sum(served["launches"].values()),
               "dense": dense, "rows_equal_plain": True}
     if dtype == "bfloat16":
+        result["eval_dense"] = eval_dense(det, images)
         device, launched = detect_split(step, loc, conf)
         emit({"phase": "detect_split", "dtype": dtype, "batch": BATCH,
               "device_ms": device, "device_sum_ms": sum(device.values()),
@@ -3792,6 +3837,12 @@ MESH_STEP_LIMITS = {"ssd300_f32": 1e-6, "ssd300_f64": 1e-9,
                     "rfbnet300_f64": 1e-9}
 MESH_OUTPUT_LIMIT = 1e-5  # relative L2 of the gathered loc and conf
 MESH_EVAL_IMAGES = 4
+# TPU.REMAT's steps on the mesh: SSD300's float32 step at every layout
+# against the same layout's step without remat, RFBNet300's float64 one
+# at (1, 2, 2) against one process's step (relative L2 a tensor)
+MESH_REMAT_KEYS = {"1x2x1": ("ssd300_f32",), "1x1x2": ("ssd300_f32",),
+                   "1x2x2": ("ssd300_f32", "rfbnet300_f64")}
+MESH_REMAT_LIMITS = {"ssd300_f32": 1e-7, "rfbnet300_f64": 1e-9}
 
 
 def mesh_cfg(name, dtype, layout):
@@ -3801,17 +3852,19 @@ def mesh_cfg(name, dtype, layout):
     return cfg
 
 
-def mesh_step(work, key, layout, device):
+def mesh_step(work, key, layout, device, remat=False):
     """One train step of the ``key`` case (``WORK/<key>.pt``: its config,
-    dtype, full weights and batch) on the current mesh: the metrics, the
-    full momenta and running statistics (rank 0's, gathered), this
-    rank's parameter and momentum bytes, its peak memory over the step
-    and what it saved for the backward, the halo bytes it sent and the
-    step's ms."""
+    dtype, full weights and batch) on the current mesh, under
+    ``TPU.REMAT`` with ``remat``: the metrics, the full momenta and
+    running statistics (rank 0's, gathered), this rank's parameter and
+    momentum bytes, its peak memory over the step and what it saved for
+    the backward, the halo bytes it sent (by pass: forward, recompute,
+    backward) and the step's ms."""
     from odtpu_torch import parallel
     from odtpu_torch.parallel import spatial
     case = torch.load(os.path.join(work, key + ".pt"), weights_only=False)
     cfg = mesh_cfg(case["name"], case["dtype"], layout)
+    cfg.TPU.REMAT = remat
     state, priors = create_train_state(cfg, device)
     if case["dtype"] == "float64":
         state.model.double()
@@ -3824,7 +3877,7 @@ def mesh_step(work, key, layout, device):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sent = spatial.SENT_BYTES
+    sent = dict(spatial.SENT)
     t0 = time.perf_counter()
     with torch.backends.cudnn.flags(enabled=case["cudnn"], benchmark=False,
                                     deterministic=True, allow_tf32=False), \
@@ -3852,7 +3905,10 @@ def mesh_step(work, key, layout, device):
             # momenta the first step makes, a tensor each a parameter
             "activation_bytes": peak - 2 * sum(
                 t.numel() * t.element_size() for t in local),
-            "halo_bytes": spatial.SENT_BYTES - sent, "ms": ms, **saved}
+            "halo_bytes": sum(spatial.SENT.values()) - sum(sent.values()),
+            "halo_bytes_by_pass": {k: v - sent[k]
+                                   for k, v in spatial.SENT.items()},
+            "ms": ms, **saved}
 
 
 @contextlib.contextmanager
@@ -4000,31 +4056,52 @@ def mesh_f32_cause(work, one_steps, device):
     return runs, line
 
 
-def mesh_family(work, name, layout, device):
+def family_cfg(name, layout=(1, 1, 1), quant=""):
+    """Configuration ``name`` for the mesh phase's eval batches: float32
+    convs, or int8 ones with the heads in bf16 (``quant``, as served)."""
+    cfg = load_cfg(name)
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16" if quant else "float32"
+    cfg.TPU.QUANT = quant
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL, cfg.TPU.MESH_SPATIAL = layout
+    return cfg
+
+
+def family_eval(cfg, weights, images, device):
+    """An eval batch through ``Detector`` (cuDNN deterministic, TF32 off):
+    the outputs, the rows, the rows of the plain detect path on the same
+    outputs, the ``nms_rows``, ``bn_eval`` and ``torch._int_mm`` launches,
+    and the bytes of the convs' cached int8 weight operands."""
+    det = Detector(cfg, weights, device=device)
+    images = images.to(device)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        reset_counts()
+        int_mm = quant.INT_MM_CALLS
+        outputs = det.step.forward(images)
+        rows = det.step.detect(*outputs)["rows"]
+        torch.cuda.synchronize()
+        launches = {**counts(), "bn_eval": batch_norm.LAUNCHES,
+                    "int_mm": quant.INT_MM_CALLS - int_mm}
+        plain = plain_rows(det.step, *outputs)
+    cache = sum(t.numel() * t.element_size()
+                for m in det.model.modules() if isinstance(m, Conv)
+                for k, t in m.int8_cache.items() if k in ("b", "s_w"))
+    return {"outputs": [o.cpu() for o in outputs], "rows": rows.cpu(),
+            "plain_equal": bool(torch.equal(rows, plain)),
+            "launches": launches, "int8_cache_bytes": cache}
+
+
+def mesh_family(work, name, layout, device, quant=""):
     """An eval batch of configuration ``name`` (``WORK/family_<name>.pt``:
-    float32 weights with drawn norms, the images) through ``Detector`` on
-    the current mesh: the gathered outputs, the rows, the rows of the
-    plain detect path on the same outputs, and this rank's ``nms_rows``
-    and ``bn_eval`` launches."""
+    float32 weights with drawn norms, the images) on the current mesh
+    (:func:`family_eval`), in float32 or in int8 (``quant``)."""
     path = os.path.join(work, "family_{}.pt".format(name))
     while not os.path.exists(path + ".done"):
         time.sleep(0.05)
     case = torch.load(path, weights_only=False)
-    cfg = load_cfg(name)
-    cfg.TPU.COMPUTE_DTYPE = "float32"
-    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL, cfg.TPU.MESH_SPATIAL = layout
-    det = Detector(cfg, case["weights"], device=device)
-    images = case["images"].to(device)
-    reset_counts()
-    with torch.inference_mode():
-        outputs = det.step.forward(images)
-        rows = det.step.detect(*outputs)["rows"]
-        torch.cuda.synchronize()
-        launches = {**counts(), "bn_eval": batch_norm.LAUNCHES}
-        plain = plain_rows(det.step, *outputs)
-    return {"outputs": [o.cpu() for o in outputs], "rows": rows.cpu(),
-            "plain_equal": bool(torch.equal(rows, plain)),
-            "launches": launches}
+    return family_eval(family_cfg(name, layout, quant), case["weights"],
+                       case["images"], device)
 
 
 def mesh_cli_train(work, device):
@@ -4051,27 +4128,79 @@ def mesh_cli_train(work, device):
             "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES}}
 
 
-def mesh_cli_eval(work, device, tag, extra=()):
-    """``odtpu_torch.eval``'s command line on the checkpoint of
-    :func:`mesh_cli_train`, in float32 (TF32 off): its mAP, image and
-    dropped counts, launches and (rank 0's) detection files' lines."""
+# what the remat run's yml sets over SSD300's defaults (the data tree,
+# the run's length and rate): TPU.REMAT on a spatial mesh of 2 ranks
+MESH_REMAT_YML = """\
+# SSD300 trained under TPU.REMAT on a spatial mesh (chip_smoke.py mesh)
+GENERAL:
+  HISTORY_ROOT: '{work}/history'
+DATASET:
+  DATASET_DIR: '{work}/voc'
+  TRAIN_SETS: (('2007', 'trainval'),)
+  NUM_WORKERS: 2
+  DEVICE_PHOTOMETRIC: yes
+TRAIN:
+  MAX_ITER: 4
+  LOG_LOSS_ITER: 1
+  OPTIMIZER:
+    LR: 1.0e-5   # 1e-3 diverges from the seeded init
+TPU:
+  REMAT: True
+  MESH_SPATIAL: 2
+"""
+
+
+def mesh_cli_remat_train(work, device):
+    """``odtpu_torch.train --multihost --cfg <yml>`` at (1, 1, 2), the yml
+    (:data:`MESH_REMAT_YML`, written in ``WORK``) setting ``TPU.REMAT``
+    and ``TPU.MESH_SPATIAL: 2``: 4 bf16 SSD300 steps of 32 images and one
+    validation, the checkpoint under ``WORK/remat_train``; the halo bytes
+    this rank sent by pass."""
+    from odtpu_torch.parallel import spatial
+    path = os.path.join(work, "remat_s2.yml")
+    with open(path, "w") as f:
+        f.write(MESH_REMAT_YML.format(work=work))
+    args = train.parse_args(["--cfg", path, "--multihost", "--device",
+                             str(device), "--output_dir",
+                             os.path.join(work, "remat_train")])
+    cfg, out_dir, _ = train.setup(args)
+    if not (cfg.TPU.REMAT is True and cfg.TPU.MESH_SPATIAL == 2):
+        raise AssertionError("the yml's TPU keys did not reach the run")
+    sent = dict(spatial.SENT)
+    reset_counts()
+    res = train.run(args, cfg, out_dir, "")
+    return {"losses": res["losses"], "evals": res["evals"],
+            "ckpt_steps": res["ckpt_steps"],
+            "halo_bytes_by_pass": {k: v - sent[k]
+                                   for k, v in spatial.SENT.items()},
+            "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES}}
+
+
+def mesh_cli_eval(work, device, tag, extra=(), run="cli_train",
+                  dtype="float32"):
+    """``odtpu_torch.eval``'s command line on the checkpoint of the run
+    ``run`` (:func:`mesh_cli_train`'s by default), in float32 (TF32 off)
+    or ``dtype``: its mAP, image and dropped counts, launches (with
+    ``torch._int_mm``'s) and (rank 0's) detection files' lines."""
     from odtpu_torch import parallel
     args = cli.parse_args(["--cfg_name", "ssd_vgg16_voc", "--device",
                            str(device), "--ckpt",
-                           os.path.join(work, "cli_train", "ckpt"),
+                           os.path.join(work, run, "ckpt"),
                            "--output_dir", os.path.join(work, tag)]
                           + list(extra))
     cfg = cli.setup(args)
     cfg.DATASET.DATASET_DIR = os.path.join(work, "voc")
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     reset_counts()
+    int_mm = quant.INT_MM_CALLS
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
         res = cli.run(args, cfg)
     out = {"maps": res["maps"], "weights": res["weights"],
            "images": res["timing"]["images"],
            "dropped": res["timing"]["dropped_dets"],
-           "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES}}
+           "launches": {**counts(), "bn_eval": batch_norm.LAUNCHES,
+                        "int_mm": quant.INT_MM_CALLS - int_mm}}
     if parallel.is_main():
         out["lines"] = det_lines(os.path.join(work, tag))
     return out
@@ -4150,6 +4279,15 @@ def mesh_child(argv):
             ["rfbnet300_f64"] if layout == (1, 2, 2) else [])
         for key in keys:
             out["steps"][key] = mesh_step(work, key, layout, device)
+        for key in MESH_REMAT_KEYS[text]:
+            torch.cuda.empty_cache()
+            out["steps"][key + "_remat"] = mesh_step(work, key, layout,
+                                                     device, remat=True)
+            # the step without remat again, warm as the remat one is:
+            # their ms and peaks side by side
+            torch.cuda.empty_cache()
+            out["steps"][key + "_warm"] = mesh_step(work, key, layout,
+                                                    device)
         out["seconds"]["steps"] = time.perf_counter() - t0
         # every process of the phase shares the card: each hands back
         # what its allocator keeps between parts
@@ -4161,6 +4299,13 @@ def mesh_child(argv):
                                                     device)
             out["seconds"]["families"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
+        if layout == (1, 2, 1):
+            t0 = time.perf_counter()
+            out["int8"] = {name: mesh_family(work, name, layout, device,
+                                             "int8") for name in FAMILIES}
+            out["seconds"]["int8"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         if layout == (1, 2, 1):
             out["cli_train"] = mesh_cli_train(work, device)
@@ -4169,10 +4314,19 @@ def mesh_child(argv):
             parallel.barrier()
             if parallel.is_main():
                 open(os.path.join(work, "cli_train.done"), "w").close()
+            wait_for(os.path.join(work, "remat_train.done"))
+            out["cli_eval_int8"] = mesh_cli_eval(
+                work, device, "eval_int8", ["--multihost", "--mesh_model",
+                                            "2", "--quant", "int8"],
+                run="remat_train", dtype="bfloat16")
         elif layout == (1, 1, 2):
-            done = os.path.join(work, "cli_train.done")
-            while not os.path.exists(done):
-                time.sleep(0.1)
+            out["remat_train"] = mesh_cli_remat_train(work, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            parallel.barrier()
+            if parallel.is_main():
+                open(os.path.join(work, "remat_train.done"), "w").close()
+            wait_for(os.path.join(work, "cli_train.done"))
             out["cli_eval"] = mesh_cli_eval(work, device, "eval_spatial",
                                             ["--multihost",
                                              "--mesh_spatial", "2"])
@@ -4183,6 +4337,13 @@ def mesh_child(argv):
         parallel.barrier()
     finally:
         parallel.shutdown()
+
+
+def wait_for(path):
+    """Wait until ``path`` exists (another launch's mark; the phase's
+    timeout ends a wait that never does)."""
+    while not os.path.exists(path):
+        time.sleep(0.1)
 
 
 def mesh_inputs(work):
@@ -4208,12 +4369,11 @@ def mesh_inputs(work):
 
 
 def mesh_family_one(work, name):
-    """Configuration ``name`` in one process on the card (float32, TF32
-    off): its weights with every batch norm drawn by :func:`random_norms`
-    (on the CPU, from the first image), written with 4 seeded images for
-    the ranks, and its outputs and rows."""
-    cfg = load_cfg(name)
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    """Configuration ``name`` in one process on the card: its weights with
+    every batch norm drawn by :func:`random_norms` (on the CPU, from the
+    first image), written with 4 seeded images for the ranks, and its
+    eval batch in float32 and in int8 (:func:`family_eval`)."""
+    cfg = family_cfg(name)
     images = torch.from_numpy(random_images(
         MESH_EVAL_IMAGES, cfg.MODEL.IMAGE_SIZE, 11))
     with torch.inference_mode():
@@ -4224,10 +4384,9 @@ def mesh_family_one(work, name):
         path = os.path.join(work, "family_{}.pt".format(name))
         torch.save({"weights": weights, "images": images}, path)
         open(path + ".done", "w").close()
-        det = Detector(cfg, weights, device="cuda")
-        outputs = det.step.forward(images.cuda())
-        rows = det.step.detect(*outputs)["rows"]
-    return {"outputs": [o.cpu() for o in outputs], "rows": rows.cpu()}
+    return {"float32": family_eval(cfg, weights, images, "cuda"),
+            "int8": family_eval(family_cfg(name, quant="int8"), weights,
+                                images, "cuda")}
 
 
 def rows_apart(got, want, rtol=1e-4, atol=1e-5, tie=1e-5):
@@ -4270,12 +4429,28 @@ def phase_mesh(n_train=64, n_test=32):
       of one process's, the rows at rtol 1e-4 and atol 1e-5 (a row off
       must sit at a tie in scores), the rows equal to the plain detect
       path's on the same outputs, one ``nms_rows`` launch on each rank;
+    - ``TPU.REMAT``: SSD300's float32 step again under it at each layout,
+      within 1e-7 of the same layout's step without it, and RFBNet300's
+      float64 one at (1, 2, 2) within 1e-9 of one process's
+      (:data:`MESH_REMAT_LIMITS`), the recompute's halo bytes equal to
+      the forward's; peak memory, halo bytes by pass and ms a step with
+      and without it;
+    - int8 serving at (1, 2, 1): every configuration of ``families``
+      served in int8 convs (bf16 heads) at batch 4: loc, conf and rows
+      bit-equal to one process's int8 here, the same ``torch._int_mm``,
+      ``bn_eval`` and ``nms_rows`` launches a rank as one process makes,
+      and the cached int8 weight bytes a rank against world 1's;
     - the command lines: ``odtpu_torch.train --multihost --mesh_model 2``
       (4 bf16 SSD300 steps of 32 images and a validation) at (1, 2, 1),
       its checkpoint scored by ``odtpu_torch.eval --multihost
       --mesh_spatial 2`` at (1, 1, 2) and by ``odtpu_torch.eval`` at
       world 1 here, in float32: their detection files' lines equal but
-      at ties (:func:`det_lines_apart`);
+      at ties (:func:`det_lines_apart`); ``odtpu_torch.train --multihost
+      --cfg <yml>`` at (1, 1, 2), the yml setting ``TPU.REMAT`` and
+      ``TPU.MESH_SPATIAL: 2`` (4 steps and a validation), its checkpoint
+      scored by ``odtpu_torch.eval --multihost --mesh_model 2 --quant
+      int8`` at (1, 2, 1) and by ``odtpu_torch.eval --quant int8`` at
+      world 1 here, in bf16: their detection files bit-equal;
     - per rank: parameter and momentum bytes at M = 2 against world 1,
       peak memory of the step at S = 2 against world 1 (same batch), its
       activations (the peak less the gradients and new momenta) and the
@@ -4321,6 +4496,11 @@ def phase_mesh(n_train=64, n_test=32):
         t0 = time.perf_counter()
         world1_eval = mesh_cli_eval(work, "cuda", "eval_world1")
         seconds["cli_eval_world1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        world1_int8 = mesh_cli_eval(work, "cuda", "eval_int8_world1",
+                                    ["--quant", "int8"], run="remat_train",
+                                    dtype="bfloat16")
+        seconds["cli_eval_int8_world1"] = time.perf_counter() - t0
     finally:
         for handle in launches:
             stop(handle)
@@ -4361,7 +4541,7 @@ def phase_mesh(n_train=64, n_test=32):
     families = []
     for text in ("1x2x1", "1x1x2"):
         for name in FAMILIES:
-            want = one_families[name]
+            want = one_families[name]["float32"]
             per_rank = [r["families"][name] for r in ranks[text]]
             got = per_rank[0]
             errors = [rel_l2(g, w) for g, w in zip(got["outputs"],
@@ -4382,8 +4562,72 @@ def phase_mesh(n_train=64, n_test=32):
                             and r["launches"]["nms_mask"] == 0
                             for r in per_rank)):
                 failing.append("families {}".format(line))
-    one_ssd = one_steps["ssd300_f32"]
+    remat = []
+    for text, rs in ranks.items():
+        for key in MESH_REMAT_KEYS[text]:
+            got = rs[0]["steps"][key + "_remat"]
+            # SSD300's float32 against the same layout's step without
+            # remat, RFBNet300's float64 against one process's
+            ref = (rs[0]["steps"][key] if key == "ssd300_f32"
+                   else one_steps[key])
+            held = {**momentum_errors(got["momentum"], ref["momentum"]),
+                    **stats_errors(got["stats"], ref["stats"])}
+            line = {"layout": text, "case": key,
+                    "held_to": ("same layout without remat"
+                                if key == "ssd300_f32" else "one process"),
+                    "limit": MESH_REMAT_LIMITS[key],
+                    "max_held_error": max(held.values()),
+                    "bit_equal_tensors": sum(v == 0 for v in held.values()),
+                    "tensors": len(held), "loss": got["loss"],
+                    "loss_held_to": ref["loss"],
+                    "ranks": [{
+                        "peak_step_bytes": r["steps"][key + "_remat"][
+                            "peak_step_bytes"],
+                        "peak_step_bytes_without_remat": r["steps"][key][
+                            "peak_step_bytes"],
+                        "halo_bytes_by_pass": r["steps"][key + "_remat"][
+                            "halo_bytes_by_pass"],
+                        "halo_bytes_by_pass_without_remat": r["steps"][key][
+                            "halo_bytes_by_pass"],
+                        "peak_step_bytes_without_remat_warm": r["steps"][
+                            key + "_warm"]["peak_step_bytes"],
+                        "ms": r["steps"][key + "_remat"]["ms"],
+                        "ms_without_remat": r["steps"][key]["ms"],
+                        "ms_without_remat_warm": r["steps"][key + "_warm"][
+                            "ms"]}
+                        for r in rs]}
+            remat.append(line)
+            sent = [r["halo_bytes_by_pass"] for r in line["ranks"]]
+            if not (line["max_held_error"] <= line["limit"]
+                    and got["num_pos"] == ref["num_pos"]
+                    and all(s["recompute"] == s["forward"] for s in sent)):
+                failing.append("remat {}".format(line))
+    int8 = []
     tp = ranks["1x2x1"]
+    for name in FAMILIES:
+        want = one_families[name]["int8"]
+        per_rank = [r["int8"][name] for r in tp]
+        line = {"layout": "1x2x1", "cfg": name,
+                "outputs_equal": [all(torch.equal(g, w) for g, w in zip(
+                    r["outputs"], want["outputs"])) for r in per_rank],
+                "rows_equal": [torch.equal(r["rows"], want["rows"])
+                               for r in per_rank],
+                "rows_kept": int((want["rows"][..., 0] > 0).sum()),
+                "plain_equal": [r["plain_equal"] for r in per_rank],
+                "launches": [r["launches"] for r in per_rank],
+                "launches_world1": want["launches"],
+                "int8_cache_bytes": [r["int8_cache_bytes"]
+                                     for r in per_rank],
+                "int8_cache_bytes_world1": want["int8_cache_bytes"]}
+        line["int8_cache_share_of_world1"] = max(
+            line["int8_cache_bytes"]) / max(want["int8_cache_bytes"], 1)
+        int8.append(line)
+        if not (all(line["outputs_equal"]) and all(line["rows_equal"])
+                and all(line["plain_equal"]) and line["rows_kept"]
+                and all(r == want["launches"] and r["int_mm"] > 0
+                        and r["nms_rows"] == 1 for r in line["launches"])):
+            failing.append("int8 {}".format(line))
+    one_ssd = one_steps["ssd300_f32"]
     sp = ranks["1x1x2"]
     memory = {
         "world1_param_bytes": one_ssd["param_bytes"],
@@ -4425,6 +4669,8 @@ def phase_mesh(n_train=64, n_test=32):
                        "bytes".format(share))
     cli_train = tp[0]["cli_train"]
     cli_eval = sp[0]["cli_eval"]
+    remat_train = sp[0]["remat_train"]
+    eval_int8 = tp[0]["cli_eval_int8"]
     cli_line = {
         "train_mesh_model_2": {"losses": [
             {k: m[k] for k in ("step", "loss", "num_pos")}
@@ -4439,7 +4685,57 @@ def phase_mesh(n_train=64, n_test=32):
         "eval_world1": {"maps": world1_eval["maps"],
                         "images": world1_eval["images"],
                         "dropped": world1_eval["dropped"],
-                        "launches": world1_eval["launches"]}}
+                        "launches": world1_eval["launches"]},
+        "train_yml_remat_mesh_spatial_2": {
+            "losses": [{k: m[k] for k in ("step", "loss", "num_pos")}
+                       for m in remat_train["losses"]],
+            "evals": remat_train["evals"],
+            "ckpt_steps": remat_train["ckpt_steps"],
+            "halo_bytes_by_pass": [r["remat_train"]["halo_bytes_by_pass"]
+                                   for r in sp],
+            "launches": [r["remat_train"]["launches"] for r in sp]},
+        "eval_int8_mesh_model_2": {
+            "maps": eval_int8["maps"], "images": eval_int8["images"],
+            "dropped": eval_int8["dropped"],
+            "launches": [r["cli_eval_int8"]["launches"] for r in tp]},
+        "eval_int8_world1": {"maps": world1_int8["maps"],
+                             "images": world1_int8["images"],
+                             "dropped": world1_int8["dropped"],
+                             "launches": world1_int8["launches"]}}
+    cli_line["remat_maps"] = {
+        "validation_bf16_mesh_spatial_2": remat_train["evals"][-1]["mAP"],
+        "eval_int8_mesh_model_2": eval_int8["maps"][0],
+        "eval_int8_world1": world1_int8["maps"][0]}
+    # int8 at M = 2 against world 1's int8, same checkpoint: bit-equal
+    int8_apart = det_lines_apart(eval_int8["lines"], world1_int8["lines"],
+                                 0.0, 0.0, 0.0)
+    n_int8_lines = sum(len(v) for v in world1_int8["lines"].values())
+    cli_line["eval_int8_lines"] = {
+        "world1": n_int8_lines,
+        "mesh_model_2": sum(len(v) for v in eval_int8["lines"].values()),
+        "apart": len(int8_apart), "apart_detail": int8_apart[:8]}
+    if remat_train["ckpt_steps"] != [4] or not all(
+            math.isfinite(m["loss"]) and m["num_pos"] > 0
+            for m in remat_train["losses"]) \
+            or not eval_int8["images"] == world1_int8["images"] == n_test \
+            or not n_int8_lines \
+            or eval_int8["lines"] != world1_int8["lines"] \
+            or eval_int8["maps"] != world1_int8["maps"] \
+            or eval_int8["dropped"] != world1_int8["dropped"] \
+            or not all(r["remat_train"]["halo_bytes_by_pass"]["recompute"]
+                       > 0 for r in sp) \
+            or not world1_int8["launches"]["int_mm"] > 0 \
+            or world1_int8["launches"]["nms_rows"] != -(-n_test // 32) \
+            or not all(r["cli_eval_int8"]["launches"]["int_mm"]
+                       == world1_int8["launches"]["int_mm"]
+                       and r["cli_eval_int8"]["launches"]["nms_rows"]
+                       == -(-n_test // 32) for r in tp) \
+            or not all(r["remat_train"]["launches"]["nms_rows"] == 1
+                       for r in sp):
+        failing.append("remat and int8 command lines {}".format({
+            k: cli_line[k] for k in (
+                "train_yml_remat_mesh_spatial_2", "eval_int8_mesh_model_2",
+                "eval_int8_world1", "eval_int8_lines")}))
     maps = [cli_train["evals"][-1]["mAP"], cli_eval["maps"][0],
             world1_eval["maps"][0]]
     # the spatial mesh's detection files against world 1's, same weights
@@ -4471,7 +4767,8 @@ def phase_mesh(n_train=64, n_test=32):
               "note": "ranks share one card on gloo: correctness and "
                       "memory, not scaling",
               "steps": steps, "f32_cause": f32_cause,
-              "families": families, "memory": memory,
+              "families": families, "remat": remat, "int8": int8,
+              "memory": memory,
               "cli": cli_line, "maps": maps,
               "child_seconds": {t: [r["seconds"] for r in rs]
                                 for t, rs in ranks.items()},
@@ -4484,11 +4781,14 @@ def phase_mesh(n_train=64, n_test=32):
 
 def mesh_launches(mesh, name):
     """The ``mesh`` phase's launches of kernel entry ``name`` on each rank:
-    every family's eval batch at (1, 2, 1) and (1, 1, 2), and the command
-    lines' validation and eval."""
+    every family's eval batch at (1, 2, 1) and (1, 1, 2), in int8 at
+    (1, 2, 1), and the command lines' validations and evals."""
     out = {}
     for line in mesh["families"]:
         out["{} {}".format(line["layout"], line["cfg"])] = [
+            launches[name] for launches in line["launches"]]
+    for line in mesh["int8"]:
+        out["{} int8 {}".format(line["layout"], line["cfg"])] = [
             launches[name] for launches in line["launches"]]
     cli_line = mesh["cli"]
     out["train --mesh_model 2"] = [
@@ -4497,6 +4797,12 @@ def mesh_launches(mesh, name):
     out["eval --mesh_spatial 2"] = [
         launches[name] for launches in
         cli_line["eval_mesh_spatial_2"]["launches"]]
+    out["train --cfg remat_s2.yml"] = [
+        launches[name] for launches in
+        cli_line["train_yml_remat_mesh_spatial_2"]["launches"]]
+    out["eval --mesh_model 2 --quant int8"] = [
+        launches[name] for launches in
+        cli_line["eval_int8_mesh_model_2"]["launches"]]
     return out
 
 
@@ -4555,6 +4861,7 @@ def main():
         entry["launches_by_path"] = {
             "serving": bf16["launches"][name],
             "DetectOut": bf16["dense"]["launches"][name],
+            "eval_dense": bf16["eval_dense"]["launches"][name],
             "families": {f["cfg"]: f["launches"][name] for f in families},
             "train_step": train["launches"][name],
             "family_train": {f["cfg"]: f["launches"][name]

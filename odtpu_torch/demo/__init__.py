@@ -20,8 +20,8 @@ from ..utils.visualize import put_text, rectangle
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cfg", default="ssd_vgg16_voc",
-                   help="one of utils.config.CFGS, or the path of the yml "
-                        "it stands for")
+                   help="one of utils.config.CFGS, or the path of any "
+                        "yml")
     p.add_argument("--ckpt", default="",
                    help="a checkpoint dir of the train command line (its "
                         "latest step) or an odtpu npz")
@@ -38,11 +38,11 @@ def detector(args) -> Detector:
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
-    name = args.cfg
-    if name.endswith((".yml", ".yaml")):
-        name = resolve_cfg_args(argparse.Namespace(cfg=name, cfg_name="",
-                                                   job_group=""))
-    cfg = load_cfg(name)
+    if args.cfg.endswith((".yml", ".yaml")):
+        cfg = resolve_cfg_args(argparse.Namespace(cfg=args.cfg, cfg_name="",
+                                                  job_group=""))
+    else:
+        cfg = load_cfg(args.cfg)
     npz = args.npz or (args.ckpt if args.ckpt.endswith(".npz") else "")
     if npz:
         state_dict = load_odtpu_npz(npz)

@@ -6,8 +6,8 @@ Counterpart of ``eval.py`` (the reference's eval.py)::
         [--ckpt DIR | --model_npz NPZ] [--output_dir eval_out]
         [--quant int8] [--device cuda]
 
-builds the detector of one of ``utils.config.CFGS`` (by name, or by its
-yml's path: the port reads no yaml), loads the latest checkpoint of
+builds the detector of one of ``utils.config.CFGS`` by name, or of any
+yml by its path (``--cfg``), loads the latest checkpoint of
 ``--ckpt`` (default ``weights/<job_group>/<cfg_name>/ckpt``) with its
 running statistics, or an ``odtpu`` npz with its ``__batch_stats__``, and
 runs the serving path's eval step (the CUDA NMS kernel on a card) over
@@ -29,8 +29,10 @@ of devices)::
 each data index (``N / (M * S)`` of them) scores its slice of the test
 set with its part of the model (``models.shard_model``), the rows are
 gathered, and every rank computes the same mAP; rank 0 prints and
-writes the detection files. int8 does not run on a tensor-parallel or
-spatial mesh.
+writes the detection files. ``--quant int8`` runs on a tensor-parallel
+mesh (each model rank its channel blocks' int8 GEMMs, the gathered maps
+equal to one process's bit for bit) and is refused on a spatial one,
+where ``odtpu``'s own int8 step does not compile.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from ..data import dataset_factory
 from ..infer import Detector
 from ..train import add_mesh_args, apply_mesh_args
 from ..utils.checkpoint import Checkpointer, load_odtpu_npz
-from ..utils.config import load_cfg, resolve_cfg_args
+from ..utils.config import resolve_cfg_args
 from .evaluator import EvalVOC, eval_solver_factory
 
 
@@ -56,7 +58,7 @@ def parse_args(argv=None):
                         "with --cfg, only the run's name")
     p.add_argument("--job_group", default="", help="default: base")
     p.add_argument("--cfg", default="",
-                   help="a yml that utils.config.CFGS names")
+                   help="the path of any yml, laid over the defaults")
     p.add_argument("--ckpt", default="",
                    help="checkpoint dir (default weights/<group>/<name>/"
                         "ckpt); its latest step is scored")
@@ -81,7 +83,7 @@ def setup(args):
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
-    cfg = load_cfg(resolve_cfg_args(args))
+    cfg = resolve_cfg_args(args)
     if args.quant:
         cfg.TPU.QUANT = args.quant
     apply_mesh_args(args, cfg)
@@ -110,7 +112,8 @@ def run(args, cfg) -> dict:
     solver = eval_solver_factory(dataset_factory("eval", cfg), cfg,
                                  args.output_dir)
     state_dict, source = _weights(args, cfg)
-    detector = Detector(cfg, state_dict=state_dict, device=args.device)
+    detector = Detector(cfg, state_dict=state_dict, device=args.device,
+                        compact=None)
     res, maps = solver.validate(detector.step)
     if parallel.is_main():
         if isinstance(solver, EvalVOC):

@@ -8,8 +8,10 @@ under ``LOG.SHOW_TEST_IMAGE`` and VOC's per-class PR curves under
 ``LOG.SHOW_PR_CURVE``, written on rank 0 when a writer is given. The
 eval step is
 ``step(images) -> {"rows": [B, R, 6], "dropped": [B]}``
-(``odtpu_torch.eval_step``); the rows' boxes are scaled from [0, 1] to
-each image's original pixels by the batch's ``extra`` (h, w, c), short
+(``odtpu_torch.eval_step``), or under ``EVAL.COMPACT = False`` the dense
+``[B, C, K, 5]``, which :func:`dense_to_rows` turns into ``[B, C * K,
+6]`` rows with no ``dropped`` count; the rows' boxes are scaled from
+[0, 1] to each image's original pixels by the batch's ``extra`` (h, w, c), short
 last batches are padded to the loader's batch size, and a nonzero
 ``dropped`` count (per-class survivors the row cap discarded) is
 reported in ``last_timing`` and as a warning.
@@ -75,8 +77,11 @@ class EvalBase:
             batch, valid = pad_batch_to(batch, self.batch_size)
             t1 = time.time()
             out = eval_step(batch["images"])
-            det = out["rows"].cpu().numpy()[:valid].copy()
-            n_dropped += int(out["dropped"].cpu().numpy()[:valid].sum())
+            if isinstance(out, dict):
+                det = out["rows"].cpu().numpy()[:valid].copy()
+                n_dropped += int(out["dropped"].cpu().numpy()[:valid].sum())
+            else:  # the dense contract: every per-class survivor
+                det = dense_to_rows(out.cpu().numpy()[:valid])
             t_detect += time.time() - t1
             # normalized boxes (columns 1-4) -> original pixels
             h = batch["extra"][:valid, 0].reshape(valid, 1)
@@ -107,8 +112,9 @@ class EvalBase:
         if n_dropped and parallel.is_main():
             cap = int(self.cfg.EVAL.COMPACT_ROWS) or int(self.cfg.EVAL.TOP_K)
             print("WARNING: the eval rows dropped {} detections beyond the "
-                  "{}-per-image cross-class cap; raise EVAL.COMPACT_ROWS"
-                  .format(n_dropped, cap), file=sys.stderr)
+                  "{}-per-image cross-class cap; raise EVAL.COMPACT_ROWS "
+                  "(or set EVAL.COMPACT=False for the dense reference "
+                  "contract)".format(n_dropped, cap), file=sys.stderr)
         return self.evaluate_stats(tb_writer)
 
     def _log_test_images(self, batch, det, valid, tb_writer, thresh=0.5):
@@ -140,6 +146,16 @@ class EvalBase:
                 axis=1)
             vis_img_box(img.astype(np.uint8), {"gt": gt, "pred": rows},
                         tb_writer, tag="eval/detections", step=b)
+
+
+def dense_to_rows(det: np.ndarray) -> np.ndarray:
+    """[V, C, K, 5] -> [V, C * K, 6] rows (score, box, cls), as
+    ``odtpu``'s ``EvalBase._dense_to_rows``."""
+    V, C, K, _ = det.shape
+    cls = np.broadcast_to(np.arange(C, dtype=det.dtype)[None, :, None],
+                          (V, C, K))
+    rows = np.concatenate([det, cls[..., None]], axis=-1)
+    return rows.reshape(V, C * K, 6)
 
 
 class EvalVOC(EvalBase):

@@ -1,12 +1,16 @@
 """The eval step: uint8 images in, cross-class detection rows out.
 
-Counterpart of ``make_eval_step`` in ``odtpu/parallel/train.py:227-293``
-on its compact path: uint8 BGR NHWC -> float32, mean
-subtract, BGR -> RGB (reference det_dataset.py:49) -> forward ->
-the model's ``decode`` (RefineDet's is its two-step decode,
-``train.py:259-268``) -> per-class NMS -> cross-class top rows plus the ``dropped``
-self-audit: how many per-class survivors the row cap discarded (the
-reference keeps every survivor, so nonzero marks a deviation).
+Counterpart of ``make_eval_step`` in ``odtpu/parallel/train.py:227-293``:
+uint8 BGR NHWC -> float32, mean subtract, BGR -> RGB (reference
+det_dataset.py:49) -> forward -> the model's ``decode`` (RefineDet's is
+its two-step decode, ``train.py:259-268``) -> per-class NMS, one
+``nms_rows`` launch a batch on a card -> with ``EVAL.COMPACT`` (the
+default) the cross-class top rows plus the ``dropped`` self-audit: how
+many per-class survivors the row cap discarded (the reference keeps
+every survivor, so nonzero marks a deviation); without it the dense
+reference contract ``[B, C, TOP_K, 5]``, every class's survivors first
+in score order (``ops.detect.survivors_first``), as ``odtpu``'s
+``compact=False`` step returns it.
 
 The forward runs the model in eval mode, as ``odtpu``'s ``train=False``
 apply does: batch norm normalises with its running statistics and leaves
@@ -25,15 +29,17 @@ import torch
 from torch import Tensor
 
 from .models.common import quant_mode, set_quant
-from .ops.detect import _compact, detect_decoded
+from .ops.detect import _compact, detect_decoded, survivors_first
 
 
 class EvalStep:
     """``step(images) -> {"rows": [B, R, 6], "dropped": int32 [B]}`` with
-    R = ``EVAL.COMPACT_ROWS`` or ``EVAL.TOP_K``. :meth:`forward` and
-    :meth:`detect` are the two halves, for callers that need loc/conf."""
+    R = ``EVAL.COMPACT_ROWS`` or ``EVAL.TOP_K``; with ``compact`` off,
+    ``step(images) -> [B, C, TOP_K, 5]`` (the dense contract).
+    :meth:`forward` and :meth:`detect` are the two halves, for callers
+    that need loc/conf. ``compact`` defaults to ``EVAL.COMPACT``."""
 
-    def __init__(self, model, priors: Tensor, cfg):
+    def __init__(self, model, priors: Tensor, cfg, compact=None):
         self.model = model
         self.priors = priors
         self.variances = tuple(float(v) for v in cfg.MODEL.VARIANCE)
@@ -41,6 +47,8 @@ class EvalStep:
         self.conf_thresh = float(cfg.EVAL.CONF_THRESH)
         self.nms_thresh = float(cfg.EVAL.NMS_THRESH)
         self.rows_cap = int(cfg.EVAL.COMPACT_ROWS) or self.top_k
+        self.compact = bool(cfg.EVAL.COMPACT if compact is None
+                            else compact)
         self.quant = quant_mode(cfg.TPU.QUANT)
         self.means = torch.tensor([float(m) for m in cfg.DATASET.PIXEL_MEANS],
                                   dtype=torch.float32, device=priors.device)
@@ -68,19 +76,23 @@ class EvalStep:
         return self.model.decode(*outputs, self.priors, self.variances)
 
     @torch.inference_mode()
-    def detect(self, *outputs: Tensor) -> dict:
-        """:meth:`forward`'s outputs -> rows and ``dropped``."""
-        # the per-class survivors-first partition is skipped: _compact
-        # re-ranks across classes, and the audit counts ignore row order
+    def detect(self, *outputs: Tensor):
+        """:meth:`forward`'s outputs -> rows and ``dropped``, or the dense
+        ``[B, C, TOP_K, 5]`` with ``compact`` off."""
+        # one nms_rows launch: its rows stay in candidate order, which
+        # _compact re-ranks across classes (the audit counts ignore row
+        # order) and survivors_first partitions within each class
         dense = detect_decoded(*self.decode(*outputs), self.conf_thresh,
                                self.nms_thresh, self.top_k,
                                row_compact=False)
+        if not self.compact:
+            return survivors_first(dense)
         rows = _compact(dense, self.rows_cap)
         return {"rows": rows, "dropped": dropped(dense, rows)}
 
-    def __call__(self, images) -> dict:
+    def __call__(self, images):
         """uint8 BGR [B, H, W, 3] images, numpy or a tensor on any device
-        (moved to the step's) -> rows and ``dropped`` on the device."""
+        (moved to the step's) -> :meth:`detect`'s result on the device."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.priors.device, non_blocking=True)
@@ -95,8 +107,9 @@ def dropped(dense: Tensor, rows: Tensor) -> Tensor:
     return n_dense - n_kept
 
 
-def make_eval_step(model, priors: Tensor, cfg) -> EvalStep:
+def make_eval_step(model, priors: Tensor, cfg, compact=None) -> EvalStep:
     """The eval step for ``model`` (a detector of ``cfg``'s family, in
     either mode: it runs in eval mode) and ``priors`` (on the device the
-    step runs on)."""
-    return EvalStep(model, priors, cfg)
+    step runs on); ``compact`` as ``odtpu``'s (default
+    ``EVAL.COMPACT``)."""
+    return EvalStep(model, priors, cfg, compact)

@@ -107,13 +107,13 @@ def export_artifact(out_path, cfg=None, cfg_path: str = "", ckpt: str = "",
     from .models.common import set_quant
     from .data.voc import VOC_CLASSES
     from .utils.checkpoint import load_strict
-    from .utils.config import load_cfg, refuse_mesh, resolve_cfg_args
+    from .utils.config import refuse_mesh, resolve_cfg_args
 
     if cfg is None:
         if cfg_path and not osp.isfile(cfg_path):
             # an artifact built from the wrong config fails silently
             raise FileNotFoundError("config not found: " + cfg_path)
-        cfg = load_cfg(resolve_cfg_args(argparse.Namespace(cfg=cfg_path)))
+        cfg = resolve_cfg_args(argparse.Namespace(cfg=cfg_path))
     refuse_mesh(cfg, "python -m odtpu_torch.export")
     cfg = copy.deepcopy(cfg)  # the mode never leaks into a caller's cfg
     if quant:
@@ -236,7 +236,7 @@ def main(argv=None):
     pe.add_argument("--cfg_name", default="",
                     help="one of utils.config.CFGS (default ssd_vgg16_voc)")
     pe.add_argument("--cfg", default="",
-                    help="a yml that utils.config.CFGS names")
+                    help="the path of any yml, laid over the defaults")
     pe.add_argument("--ckpt", default="",
                     help="a port checkpoint dir or an odtpu npz; default: "
                          "the seeded init")
@@ -253,8 +253,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.cmd == "export":
-        from .utils.config import load_cfg, resolve_cfg_args
-        cfg = load_cfg(resolve_cfg_args(args))
+        from .utils.config import resolve_cfg_args
+        cfg = resolve_cfg_args(args)
         meta = export_artifact(args.out, cfg, ckpt=args.ckpt,
                                batch=args.batch, quant=args.quant,
                                device=args.device)

@@ -2,8 +2,8 @@
 
 Counterpart of ``bench.py``'s ``infer_fn`` (lines 373-381): uint8 BGR
 NHWC batches in, ``[B, R, 6]`` rows (score, x1, y1, x2, y2, cls) and
-the ``dropped`` count out, for any configuration of
-``utils.config.CFGS``:
+the ``dropped`` count out, for any configuration (a name of
+``utils.config.CFGS`` or the path of a yml):
 
     python -m odtpu_torch.infer --cfg rfbnet300_vgg16_voc --batch 32 \
         --batches 20 --seed 0 [--npz PATH] [--quant int8] [--device cpu]
@@ -30,7 +30,7 @@ from .eval_step import make_eval_step
 from .models import model_factory, shard_model
 from .models.common import Conv
 from .utils.checkpoint import load_odtpu_npz, load_strict
-from .utils.config import CFGS, default_cfg, load_cfg, refuse_mesh
+from .utils.config import default_cfg, load_cfg, refuse_mesh
 
 
 # the first conv of :func:`random_state_dict`, the one that sees the raw
@@ -68,13 +68,16 @@ class Detector:
     on a mesh each rank then keeps its part (``models.shard_model``);
     outside a process group a ``cfg`` that asks for a mesh is refused.
     ``detector(images)`` takes uint8 BGR [B, H, W, 3] (numpy or tensor)
-    and returns ``{"rows", "dropped"}`` on the device. ``quant`` ("" or
-    "int8") overrides ``cfg.TPU.QUANT`` on a copy of ``cfg``; None serves
-    as ``cfg`` says.
+    and returns ``{"rows", "dropped"}`` on the device, as ``odtpu``'s
+    serving tools return the compact rows whatever ``EVAL.COMPACT`` says;
+    ``compact=None`` follows ``EVAL.COMPACT`` (the evaluators' dense
+    contract, for the eval command line). ``quant`` ("" or "int8")
+    overrides ``cfg.TPU.QUANT`` on a copy of ``cfg``; None serves as
+    ``cfg`` says.
     """
 
     def __init__(self, cfg=None, state_dict=None, device="cuda", seed=0,
-                 quant=None):
+                 quant=None, compact=True):
         self.cfg = default_cfg() if cfg is None else cfg
         if quant is not None:
             self.cfg = copy.deepcopy(self.cfg)
@@ -94,7 +97,7 @@ class Detector:
             # free and cuDNN runs its channels-last conv kernels
             model = model.to(memory_format=torch.channels_last)
         self.model = model
-        self.step = make_eval_step(model, priors, self.cfg)
+        self.step = make_eval_step(model, priors, self.cfg, compact)
 
     def __call__(self, images) -> dict:
         return self.step(images)
@@ -121,8 +124,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cfg", default="ssd_vgg16_voc", choices=sorted(CFGS),
-                    help="the configuration, by its yml's name")
+    ap.add_argument("--cfg", default="ssd_vgg16_voc",
+                    help="a name of utils.config.CFGS, or the path of any "
+                    "yml")
     ap.add_argument("--npz", default="",
                     help="odtpu checkpoint of that configuration; default: "
                     "random_state_dict(seed)")

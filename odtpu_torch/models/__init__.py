@@ -224,19 +224,22 @@ def spatial_plan(cfg) -> spatial.Plan:
 
 def _mesh_of(cfg):
     """The current mesh, checked against ``cfg.TPU``: the same sizes, and
-    no combination the port does not run sharded."""
+    no int8 serving on a spatial mesh, where ``odtpu``'s own int8 step
+    does not compile."""
     mesh = parallel.current()
     want = parallel.mesh_sizes(cfg, mesh.world)
     if want != (mesh.data, mesh.model, mesh.spatial):
         raise ValueError("cfg.TPU asks for a {} x {} x {} mesh; the run's is "
                          "{} x {} x {} (parallel.make_mesh)".format(
                              *want, mesh.data, mesh.model, mesh.spatial))
-    if mesh.sharded and str(cfg.TPU.QUANT or ""):
+    if mesh.spatial > 1 and str(cfg.TPU.QUANT or ""):
         raise NotImplementedError(
-            "TPU.QUANT = {!r} on a mesh with MESH_MODEL or MESH_SPATIAL "
-            "above 1: int8 serving runs unsharded (odtpu's int8 convs do "
-            "not compile under a spatial mesh either; ROADMAP.md, Queue "
-            "1)".format(cfg.TPU.QUANT))
+            "TPU.QUANT = {!r} with MESH_SPATIAL = {}: odtpu's own int8 "
+            "eval step does not compile on a spatial mesh (XLA's HLO "
+            "verifier: \"The element types of the operands to Pad do not "
+            "match\", an s8 halo pad at conv6); int8 runs on a "
+            "tensor-parallel mesh (MESH_MODEL)".format(cfg.TPU.QUANT,
+                                                       mesh.spatial))
     return mesh
 
 
@@ -254,10 +257,12 @@ def shard_model(model: torch.nn.Module, cfg) -> torch.nn.Module:
       ``model.tp_keys`` names the sharded tensors by state-dict key, with
       their full size (``parallel.full_state_dict``, ``block_of``).
       Everything else, L2Norm's scales and FSSD's ``fusion_bn`` among it,
-      is replicated and sees gathered maps.
+      is replicated and sees gathered maps. int8 serving (``TPU.QUANT``)
+      runs on it: each rank quantizes its blocks' weights (``Conv``).
     - MESH_SPATIAL = S: the forward takes the full batch of images and
       runs on this rank's rows (``parallel.spatial.sharded_forward``
-      over :func:`spatial_plan`'s plan); its outputs are whole.
+      over :func:`spatial_plan`'s plan); its outputs are whole. int8
+      serving is refused there (:func:`_mesh_of`).
     """
     mesh = _mesh_of(cfg)
     if not mesh.sharded:

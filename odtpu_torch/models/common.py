@@ -48,11 +48,13 @@ def recomputing():
     """Mark a forward as the recompute of one already run: the batch norms
     normalise with the batch's statistics as before (the same input
     gives the same statistics) and do not move their running ones again,
-    as flax's functional ``jax.checkpoint`` never does."""
+    as flax's functional ``jax.checkpoint`` never does; its halo bytes
+    count under ``parallel.spatial.SENT["recompute"]``."""
     global _RECOMPUTING
     outer, _RECOMPUTING = _RECOMPUTING, True
     try:
-        yield
+        with spatial.counted_as("recompute"):
+            yield
     finally:
         _RECOMPUTING = outer
 
@@ -197,8 +199,13 @@ class Conv(nn.Module):
     On a mesh (``parallel``) ``tp`` marks a conv that holds its model
     rank's block of output channels (``models.shard_model``): its input
     passes ``parallel.to_model_group`` and its output, after the bias,
-    the norm and the ReLU, ``parallel.gather_model_group``. Under a
-    spatial plan the conv computes its rank's rows
+    the norm and the ReLU, ``parallel.gather_model_group``. Under int8
+    serving such a conv quantizes the whole map it takes (one scale an
+    image, the same on every model rank) and runs the int8 GEMM of its
+    block, whose per-channel weight scales are its slice of the full
+    ones: the int32 sums are exact and the rescale, bias, norm and ReLU
+    act element by element, so the gathered map is one process's bit for
+    bit. Under a spatial plan the conv computes its rank's rows
     (``parallel.spatial.conv2d``).
     """
 

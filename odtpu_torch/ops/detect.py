@@ -99,6 +99,19 @@ def detect_decoded(decoded: Tensor, conf: Tensor, conf_thresh: float,
     return _finalize(out_fg, int(top_k), cross_class_topk)
 
 
+def survivors_first(dense: Tensor) -> Tensor:
+    """Rows ``[B, C, K, 5]`` in candidate order with dead rows' scores
+    zeroed (``per_class_nms(compact_rows=False)``) -> the dense contract:
+    each class's survivors first, in their order, then zero rows, as
+    ``compact_rows=True`` gives them (a stable top-k over the scores:
+    candidates are score-sorted and scores are non-negative)."""
+    B, C, K, _ = dense.shape
+    scores, perm = top_k_exact(dense[..., 0].reshape(B * C, K), K)
+    rows = torch.gather(dense.reshape(B * C, K, 5), 1,
+                        perm[..., None].expand(-1, -1, 5))
+    return (rows * (scores > 0.0)[..., None]).reshape(B, C, K, 5)
+
+
 def _compact(dense: Tensor, top_k: int) -> Tensor:
     """[B, C, K, 5] -> cross-class top-k rows [B, top_k, 6] (+cls col)."""
     B, C, K, _ = dense.shape

@@ -397,13 +397,24 @@ class _ToModel(torch.autograd.Function):
         return grad
 
 
+def _channels_last(x: Tensor) -> bool:
+    """Whether the NCHW ``x`` is laid out NHWC (and not NCHW as well)."""
+    return x.dim() == 4 and not x.is_contiguous() \
+        and x.is_contiguous(memory_format=torch.channels_last)
+
+
 class _GatherModel(torch.autograd.Function):
     """The model ranks' channel blocks concatenated along dim 1, whose
-    backward keeps this rank's block."""
+    backward keeps this rank's block. Blocks laid out NHWC are gathered
+    so: the map keeps the layout one process's conv leaves it in, and the
+    next conv runs the algorithm (and the rounding) it runs there."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.block = (current().m * x.shape[1], x.shape[1])
+        if _channels_last(x):
+            parts = all_gather(x.permute(0, 2, 3, 1), "model")
+            return torch.cat(parts, 3).permute(0, 3, 1, 2)
         return torch.cat(all_gather(x, "model"), 1)
 
     @staticmethod

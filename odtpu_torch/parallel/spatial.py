@@ -83,9 +83,25 @@ class _Replay:
 # the plan being recorded (a Plan) or replayed (a _Replay), or None
 _ACTIVE = None
 
-# bytes this process has sent in row exchanges (halos and their
-# gradients); read and reset by callers that measure them
-SENT_BYTES = 0
+# bytes this process has sent in row exchanges, by the pass that sent
+# them: the forward's halos, their fetch again when ``TPU.REMAT``
+# recomputes the forward inside the backward, and the backward's halo
+# gradients; read and reset by callers that measure them
+SENT = {"forward": 0, "recompute": 0, "backward": 0}
+# the pass a forward's fetches count under (:func:`counted_as`)
+_FORWARD_PASS = "forward"
+
+
+@contextlib.contextmanager
+def counted_as(name: str):
+    """Count the forward's halo bytes in the block under ``SENT[name]``
+    (``models.common.recomputing``: "recompute")."""
+    global _FORWARD_PASS
+    outer, _FORWARD_PASS = _FORWARD_PASS, name
+    try:
+        yield
+    finally:
+        _FORWARD_PASS = outer
 
 
 @contextlib.contextmanager
@@ -143,16 +159,16 @@ def _geometry(kind: str, x: Tensor, h_out: int | None = None):
     return h_in, h_out
 
 
-def _exchange(sends: dict, recvs: dict, like: Tensor) -> dict:
+def _exchange(sends: dict, recvs: dict, like: Tensor, counted: str) -> dict:
     """Point-to-point within the spatial group: ``sends`` {spatial index:
     tensor}, ``recvs`` {spatial index: shape}; returns {spatial index:
-    received tensor} on ``like``'s device and dtype."""
-    global SENT_BYTES
+    received tensor} on ``like``'s device and dtype. The bytes sent count
+    under ``SENT[counted]``."""
     ranks = mesh.current().ranks("spatial")
     ops, bufs = [], {}
     for i, t in sends.items():
         ops.append(dist.P2POp(dist.isend, mesh.staged(t), ranks[i]))
-        SENT_BYTES += t.numel() * t.element_size()
+        SENT[counted] += t.numel() * t.element_size()
     for i, shape in recvs.items():
         bufs[i] = torch.empty(shape, dtype=like.dtype,
                               device=mesh.staging_device(like))
@@ -193,7 +209,8 @@ class _Fetch(torch.autograd.Function):
             if t != me:
                 recvs[t] = shape[:2] + [hi - lo] + shape[3:]
         got = _exchange({t: _rows(x, lo - r0, hi - r0)
-                         for t, (lo, hi) in out_rows.items()}, recvs, x)
+                         for t, (lo, hi) in out_rows.items()}, recvs, x,
+                        _FORWARD_PASS)
         pieces = [_rows(x, lo - r0, hi - r0) if t == me else got[t]
                   for t, (lo, hi) in sorted(in_rows.items())]
         ctx.rows = (h, r0, out_rows, in_rows)
@@ -212,7 +229,8 @@ class _Fetch(torch.autograd.Function):
         back = {t: _rows(grad, lo - a, hi - a)
                 for t, (lo, hi) in in_rows.items() if t != me}
         got = _exchange(back, {t: shape[:2] + [hi - lo] + shape[3:]
-                               for t, (lo, hi) in out_rows.items()}, grad)
+                               for t, (lo, hi) in out_rows.items()}, grad,
+                        "backward")
         if me in in_rows:
             lo, hi = in_rows[me]
             dx[:, :, lo - r0:hi - r0] += _rows(grad, lo - a, hi - a)

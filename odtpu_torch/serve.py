@@ -16,7 +16,7 @@ Single-threaded, as the original is: one request at a time on the card.
     python -m odtpu_torch.serve [--port 8500] [--cfg ssd_vgg16_voc]
         [--npz PATH] [--conf 0.5] [--quant int8] [--device cuda]
 
-``--cfg`` is a name of ``utils.config.CFGS`` or the yml it stands for;
+``--cfg`` is a name of ``utils.config.CFGS`` or the path of any yml;
 without ``--npz`` the server answers with the seeded weights of
 ``infer.random_state_dict``. ``--port 0`` takes a free port; the line
 printed at start names it.
@@ -145,8 +145,8 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8500,
                    help="0 takes a free port")
     p.add_argument("--cfg", default="ssd_vgg16_voc",
-                   help="a name of utils.config.CFGS, or the yml it "
-                   "stands for")
+                   help="a name of utils.config.CFGS, or the path of any "
+                   "yml")
     p.add_argument("--npz", default="",
                    help="odtpu checkpoint of that configuration; default: "
                    "infer.random_state_dict(0)")
@@ -159,13 +159,12 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    name = args.cfg if args.cfg in CFGS else resolve_cfg_args(
+    cfg = load_cfg(args.cfg) if args.cfg in CFGS else resolve_cfg_args(
         SimpleNamespace(cfg=args.cfg, cfg_name="", job_group=""))
-    infer, _ = build_engine(load_cfg(name), args.npz, args.quant,
-                            args.device)
+    infer, _ = build_engine(cfg, args.npz, args.quant, args.device)
     server = make_server(infer, port=args.port, conf=args.conf)
     print("serving {} on :{} (POST /detect, GET /healthz)".format(
-        name, server.server_address[1]), flush=True)
+        args.cfg, server.server_address[1]), flush=True)
     try:
         server.serve_forever()
     finally:

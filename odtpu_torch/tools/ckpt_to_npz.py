@@ -26,7 +26,7 @@ import torch
 
 from ..models import create_model
 from ..utils.checkpoint import Checkpointer, load_strict, to_odtpu_params
-from ..utils.config import load_cfg, resolve_cfg_args
+from ..utils.config import resolve_cfg_args
 
 
 def convert(cfg, ckpt: str, out: str, dtype: str = "float16") -> dict:
@@ -49,13 +49,13 @@ def main(argv=None):
     p.add_argument("--cfg_name", default="",
                    help="one of utils.config.CFGS (default ssd_vgg16_voc)")
     p.add_argument("--cfg", default="",
-                   help="a yml that utils.config.CFGS names")
+                   help="the path of any yml, laid over the defaults")
     p.add_argument("--ckpt", required=True, help="a port checkpoint dir")
     p.add_argument("--out", required=True, help="output .npz path")
     p.add_argument("--dtype", default="float16",
                    choices=["float16", "float32"])
     args = p.parse_args(argv)
-    cfg = load_cfg(resolve_cfg_args(args))
+    cfg = resolve_cfg_args(args)
     arrays = convert(cfg, args.ckpt, args.out, args.dtype)
     stats = sum(k.startswith("__batch_stats__/") for k in arrays)
     if stats:

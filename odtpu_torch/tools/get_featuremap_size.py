@@ -14,7 +14,7 @@ import argparse
 import torch
 
 from ..models import create_model
-from ..utils.config import load_cfg, resolve_cfg_args
+from ..utils.config import resolve_cfg_args
 
 
 def source_shapes(cfg) -> list[tuple[int, int, int]]:
@@ -33,7 +33,7 @@ def main(argv=None) -> dict:
     p.add_argument("--cfg", default="")
     p.add_argument("--cfg_name", default="")
     p.add_argument("--job_group", default="")
-    cfg = load_cfg(resolve_cfg_args(p.parse_args(argv)))
+    cfg = resolve_cfg_args(p.parse_args(argv))
     shapes = source_shapes(cfg)
     anchors = list(cfg.MODEL.NUM_PRIOR)  # create_model sets it
     h, w = cfg.MODEL.IMAGE_SIZE

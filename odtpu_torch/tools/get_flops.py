@@ -23,7 +23,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..models import create_model
 from ..models.common import Conv
-from ..utils.config import load_cfg, resolve_cfg_args
+from ..utils.config import resolve_cfg_args
 
 
 def _meta_model(cfg):
@@ -90,7 +90,7 @@ def main(argv=None) -> dict:
     p.add_argument("--cfg", default="")
     p.add_argument("--cfg_name", default="")
     p.add_argument("--job_group", default="")
-    cfg = load_cfg(resolve_cfg_args(p.parse_args(argv)))
+    cfg = resolve_cfg_args(p.parse_args(argv))
 
     rows, conv_gmacs = conv_breakdown(cfg)
     print("per-conv MACs (reference hook formula, "

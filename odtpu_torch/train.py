@@ -25,9 +25,10 @@ The command line (``train.py:114``)::
 trains on ``DATASET.DATASET_DIR`` (``data/<SUB_DIR>`` under the checkout)
 into ``--output_dir`` (default ``weights/<job_group>/<cfg_name>``), with
 TensorBoard under ``logs/<job_group>_<cfg_name>``. The configuration is
-one of ``utils.config.CFGS``, by name or by its yml's path: the port
-reads no yaml. For the same reason the run's configuration is archived
-as ``config_used.json`` (``odtpu`` writes ``config_used.yml``). At the
+one of ``utils.config.CFGS`` by name, or any yml by its path (``--cfg``,
+read by ``utils.yml``, laid over the defaults as ``odtpu`` lays it). The
+port writes no yaml: the run's configuration is archived as
+``config_used.json`` (``odtpu`` writes ``config_used.yml``). At the
 end of a run (``backup_jobs``, ``train.py:330-358``) that file and the
 TensorBoard directory are copied to
 ``GENERAL.HISTORY_ROOT/<job_group>/<cfg_name>``, or to its first free
@@ -82,7 +83,7 @@ from .models import probe_layer_dims
 from .ops.priors import PriorBoxSSD
 from .train_step import create_train_state, make_train_step
 from .utils.checkpoint import Checkpointer, load_basenet
-from .utils.config import load_cfg, resolve_cfg_args
+from .utils.config import resolve_cfg_args
 from .utils.logging import TBWriter, Timer
 from .utils.visualize import viz_prior_anchors
 
@@ -249,12 +250,12 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="odtpu_torch training")
     p.add_argument("--cfg_name", default="",
-                   help="one of utils.config.CFGS (default ssd_vgg16_voc); "
-                        "with --cfg, only the run's name")
+                   help="one of utils.config.CFGS, or cfgs/<job_group>/"
+                        "<cfg_name>.yml (default ssd_vgg16_voc); with "
+                        "--cfg, only the run's name")
     p.add_argument("--job_group", default="", help="default: base")
     p.add_argument("--cfg", default="",
-                   help="a yml that utils.config.CFGS names "
-                        "(cfgs/<group>/<name>.yml)")
+                   help="the path of any yml, laid over the defaults")
     p.add_argument("--resume", default="", help="checkpoint dir to resume")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from <output_dir>/ckpt when it holds a "
@@ -282,15 +283,16 @@ def add_mesh_args(p) -> None:
                         "loads its slice of the data")
     p.add_argument("--mesh_model", type=int, default=0,
                    help="TPU.MESH_MODEL: ranks that split each conv of at "
-                        "least 512 output channels (default: the cfg's, 1)")
+                        "least 512 output channels (default: the yml's, "
+                        "else 1)")
     p.add_argument("--mesh_spatial", type=int, default=0,
                    help="TPU.MESH_SPATIAL: ranks that split every map's "
-                        "rows (default: the cfg's, 1)")
+                        "rows (default: the yml's, else 1)")
 
 
 def apply_mesh_args(args, cfg) -> None:
     """Set ``cfg.TPU.MESH_MODEL`` and ``MESH_SPATIAL`` from the command
-    line (the port reads no yml that could set them), then lay out the
+    line where it gives them (a flag wins over the yml), then lay out the
     run's mesh (``parallel.make_mesh``): the sizes must make up the
     world."""
     if args.mesh_model:
@@ -309,7 +311,7 @@ def setup(args):
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
-    cfg = load_cfg(resolve_cfg_args(args))
+    cfg = resolve_cfg_args(args)
     if args.max_iter:
         cfg.TRAIN.MAX_ITER = args.max_iter
     apply_mesh_args(args, cfg)

@@ -34,7 +34,7 @@ from .data import dataset_factory
 from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
 from .train_step import create_train_state, make_train_step
-from .utils.config import load_cfg, refuse_mesh, resolve_cfg_args
+from .utils.config import refuse_mesh, resolve_cfg_args
 from .utils.logging import TBWriter
 from .utils.visualize import viz_grads
 
@@ -150,7 +150,7 @@ def main(argv=None) -> dict:
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
-    cfg = load_cfg(resolve_cfg_args(args))
+    cfg = resolve_cfg_args(args)
     os.makedirs(args.output_dir, exist_ok=True)
     return run(cfg, args.device, args.output_dir)
 

@@ -34,7 +34,10 @@ device:
   (``torch.utils.checkpoint``, non-reentrant), as ``odtpu`` wraps its
   apply in ``jax.checkpoint``: the backward recomputes it. The running
   statistics move once, in the first forward
-  (``models.common.recomputing``).
+  (``models.common.recomputing``). The recompute runs whole (the
+  checkpoint's early stop is off) and first: the first node of the
+  region's backward (:class:`_RecomputeFirst`) unpacks a saved tensor,
+  which runs the recompute before any other node of the region.
 
 On a mesh (``parallel``) the step is ``odtpu``'s step on the global
 batch, the concatenation of the data indices' batches in order; every
@@ -54,11 +57,12 @@ rank of one data index holds the same images:
   a flat buffer (:meth:`TrainStep.backward`) before the clip and the
   update, which then run as in one process, the clip's norm counting a
   sharded tensor's blocks once each (:func:`clip_by_global_norm`).
-  Hard-negative mining stays per image.
-
-``TPU.REMAT`` with MESH_MODEL or MESH_SPATIAL above 1 is refused: its
-recompute would run the row exchanges again inside the backward
-(ROADMAP.md, Queue 1).
+  Hard-negative mining stays per image;
+- under ``TPU.REMAT`` the recompute runs every exchange of the forward
+  again (the tensor-parallel gathers, the halo fetches and the heads'
+  gathers of a plan replayed from its start, the norms' sums over the
+  replica group); since it runs whole and first, every rank runs it at
+  the same point of the backward, before any backward exchange.
 
 Training covers every family of the zoo.
 """
@@ -71,7 +75,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import Tensor, nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from . import parallel
 from .data.device_aug import draw_params, preprocess_train_batch
@@ -161,17 +165,30 @@ def create_train_state(cfg, device="cuda", seed: int = 0):
     a mesh the model is laid out on it (``models.shard_model``) before
     the optimizer takes its parameters, so that each momentum follows
     its parameter's layout."""
-    if bool(cfg.TPU.REMAT) and parallel.current().sharded:
-        raise NotImplementedError(
-            "TPU.REMAT with MESH_MODEL or MESH_SPATIAL above 1: the "
-            "recompute would run the mesh's exchanges again inside the "
-            "backward (ROADMAP.md, Queue 1); odtpu runs it")
     model, priors, _ = model_factory("train", cfg, device, seed)
     shard_model(model, cfg)
     model.train()
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return TrainState(model, make_optimizer(model.parameters(), cfg)), priors
+
+
+class _RecomputeFirst(torch.autograd.Function):
+    """The identity on a checkpointed forward's outputs, whose backward
+    unpacks a tensor saved inside the checkpoint: the recompute runs
+    there, before the backward of any other node of the region (each
+    one's gradient flows from this node's), at the same point on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, *outputs):
+        ctx.save_for_backward(outputs[0])
+        return tuple(o.view_as(o) for o in outputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _ = ctx.saved_tensors  # the unpack runs the recompute
+        return grads
 
 
 class TrainStep:
@@ -237,7 +254,8 @@ class TrainStep:
     def forward(self, state: TrainState, images: Tensor) -> tuple:
         """The model's raw outputs: (loc, conf), RefineDet's (arm_loc,
         arm_conf, odm_loc, odm_conf). Under ``TPU.REMAT`` the backward
-        runs the forward again, inside :func:`recomputing`."""
+        runs the forward again, whole and first, inside
+        :func:`recomputing` (see the module's docstring)."""
         if not self.remat:
             return state.model(images, phase="train")
         calls = []
@@ -245,9 +263,11 @@ class TrainStep:
         def run(x):
             with recomputing() if calls else contextlib.nullcontext():
                 calls.append(None)
-                return state.model(x, phase="train")
+                return _RecomputeFirst.apply(*state.model(x, phase="train"))
 
-        return checkpoint(run, images, use_reentrant=False)
+        # the early stop is read when the checkpoint's forward runs
+        with set_checkpoint_early_stop(False):
+            return checkpoint(run, images, use_reentrant=False)
 
     def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
              step: int) -> dict:

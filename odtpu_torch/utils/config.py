@@ -1,17 +1,26 @@
-"""The config values the port reads, as a plain Python tree.
+"""The config tree the port reads: Python defaults with a yml laid over
+them.
 
-Counterpart of ``odtpu/utils/config.py`` (defaults at lines 96-208)
-merged with ``cfgs/base/ssd_vgg16_voc.yml``: the SSD300-VGG16 VOC07+12
-configuration, for serving, training and the data path. :func:`load_cfg`
-gives each committed family yml by its name. There is no YAML reader:
-each configuration is a Python dict, so the port needs nothing beyond
-the standard library to build it.
+Counterpart of ``odtpu/utils/config.py``: the defaults (lines 42-208,
+the same keys), ``merge_cfg_from_file`` and its strict overlay (an
+unknown key is an error, values are coerced to the default's type, a
+string is ``literal_eval``-ed), ``load_cfg`` and ``resolve_cfg_args``.
+The yml is read by the port's own reader (``utils.yml``), which gives
+what ``yaml.safe_load`` gives for the YAML configs use, so the port
+needs nothing beyond the standard library to read any yml ``odtpu``
+reads. :data:`CFGS` names the committed configurations by their ymls
+under the checkout's ``cfgs/``.
 """
 
 from __future__ import annotations
 
 import copy
 import os.path as osp
+from ast import literal_eval
+
+import numpy as np
+
+from . import yml
 
 
 class AttrDict(dict):
@@ -27,6 +36,11 @@ class AttrDict(dict):
         self[name] = value
 
 
+# the checkout's root, found from this file: the committed ymls are read
+# from its cfgs/, whatever the working directory
+ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), "..", ".."))
+
+
 def default_cfg() -> AttrDict:
     """A fresh SSD300-VGG16 VOC config tree (derived values filled in)."""
     return update_cfg(_defaults())
@@ -37,8 +51,10 @@ def _defaults() -> AttrDict:
 
     # the checkout's root; runs write under weights/ and logs/ there
     C.GENERAL = AttrDict()
-    C.GENERAL.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), "..",
-                                              ".."))
+    C.GENERAL.ROOT_DIR = ROOT_DIR
+    # read by no code of either package; a yml may set them
+    C.GENERAL.CFG_ROOT = osp.join(C.GENERAL.ROOT_DIR, "cfgs")
+    C.GENERAL.JOB_GROUP = "base"
     C.GENERAL.WEIGHTS_ROOT = osp.join(C.GENERAL.ROOT_DIR, "weights")
     # where a finished run's config and TensorBoard logs are archived
     C.GENERAL.HISTORY_ROOT = osp.join(C.GENERAL.ROOT_DIR, "history")
@@ -76,6 +92,7 @@ def _defaults() -> AttrDict:
     C.DATASET.TEST_SETS = (("2007", "test"),)
     C.DATASET.NUM_CLASSES = 20
     C.DATASET.IMAGE_SIZE = (300, 300)  # (h, w)
+    C.DATASET.PROB = 0.6  # read by no code of either package
     C.DATASET.PIXEL_MEANS = (104, 117, 123)  # BGR, subtracted pre-net
     C.DATASET.TRAIN_BATCH_SIZE = 32
     C.DATASET.EVAL_BATCH_SIZE = 32
@@ -97,6 +114,8 @@ def _defaults() -> AttrDict:
     C.MODEL.SSD_TYPE = "SSD"
     C.MODEL.PRIOR_TYPE = "PriorBoxSSD"
     C.MODEL.NUM_PRIOR = None  # derived: anchors per cell, per feature map
+    C.MODEL.NUM_CLASSES = 21  # derived: DATASET.NUM_CLASSES + background
+    C.MODEL.IMAGE_SIZE = (300, 300)  # derived: DATASET.IMAGE_SIZE
     C.MODEL.STEPS = [8, 16, 32, 64, 100, 300]
     C.MODEL.MIN_SIZES = [30, 60, 111, 162, 213, 264]
     C.MODEL.MAX_SIZES = [60, 111, 162, 213, 264, 315]
@@ -123,6 +142,10 @@ def _defaults() -> AttrDict:
     C.TRAIN.EVAL_ITER = 10000
     C.TRAIN.SAVE_ITER = 10000
     C.TRAIN.LOG_LOSS_ITER = 10
+    # read by no code of either package (the command lines take
+    # --auto_resume and --basenet); a yml may set them
+    C.TRAIN.RESUME = ""
+    C.TRAIN.BASENET_WEIGHTS = ""
 
     C.TRAIN.OPTIMIZER = AttrDict()
     C.TRAIN.OPTIMIZER.OPTIMIZER = "sgd"
@@ -132,6 +155,7 @@ def _defaults() -> AttrDict:
     C.TRAIN.OPTIMIZER.CLIP_GRAD_NORM = 0.0  # global norm; 0 disables
 
     C.TRAIN.LR_SCHEDULER = AttrDict()
+    C.TRAIN.LR_SCHEDULER.SCHEDULER = "step"  # the only one there is
     C.TRAIN.LR_SCHEDULER.STEPS = (80000, 100000, 120000)
     C.TRAIN.LR_SCHEDULER.GAMMA = 0.1
     C.TRAIN.LR_SCHEDULER.WARMUP_ITERS = 0
@@ -141,6 +165,10 @@ def _defaults() -> AttrDict:
     C.EVAL.CONF_THRESH = 0.01
     C.EVAL.NMS_THRESH = 0.45
     C.EVAL.USE_07_METRIC = True
+    # the eval step's result: the cross-class rows [B, R, 6] with the
+    # ``dropped`` self-audit (True), or the dense reference contract
+    # [B, C, TOP_K, 5] with every per-class survivor (False)
+    C.EVAL.COMPACT = True
     # cross-class row budget of the compact rows; 0 = EVAL.TOP_K
     C.EVAL.COMPACT_ROWS = 0
     return C
@@ -187,126 +215,170 @@ def refuse_mesh(c: AttrDict, entry: str) -> None:
                 .format(key, value, entry))
 
 
-# SSD512's prior spec, shared by its VOC, COCO and RFBNet512 ymls
-_IMAGE512 = dict(STEPS=[8, 16, 32, 64, 128, 256, 512],
-                 ASPECT_RATIOS=[[2], [2, 3], [2, 3], [2, 3], [2, 3], [2],
-                                [2]],
-                 MIN_SIZES=[35.84, 76.8, 153.6, 230.4, 307.2, 384.0, 460.8],
-                 MAX_SIZES=[76.8, 153.6, 230.4, 307.2, 384.0, 460.8, 537.6])
-_COCO = dict(NAME="COCO2014", SUB_DIR="coco", TRAIN_SETS=(("2014", "train"),),
-             TEST_SETS=(("2014", "minival"),), NUM_CLASSES=80,
-             EVAL_BATCH_SIZE=32, NUM_EVAL_PICS=1024)
-_COCO_TRAIN = dict(MAX_ITER=400000, EVAL_ITER=40000, SAVE_ITER=10000,
-                   LR_SCHEDULER=dict(STEPS=(280000, 360000, 400000)))
-
-# name -> (the yml it stands for, what it sets over the defaults)
-CFGS = {
-    "ssd_vgg16_voc": ("cfgs/base/ssd_vgg16_voc.yml", {}),
-    "ssd_vgg16_coco": ("cfgs/base/ssd_vgg16_coco.yml",
-                       dict(DATASET=_COCO, TRAIN=_COCO_TRAIN)),
-    "ssd_vgg16_coco_image512": (
-        "cfgs/base/ssd_vgg16_coco_image512.yml",
-        dict(DATASET=dict(_COCO, TRAIN_SETS=("valminusminival2014",
-                                             "train2014"),
-                          TEST_SETS=("minival2014",), IMAGE_SIZE=(512, 512)),
-             MODEL=dict(_IMAGE512, MIN_SIZES=[20.48, 51.2, 133.12, 215.04,
-                                              296.96, 378.88, 460.8],
-                        MAX_SIZES=[51.2, 133.12, 215.04, 296.96, 378.88,
-                                   460.8, 542.72]),
-             TRAIN=_COCO_TRAIN, EVAL=dict(COMPACT_ROWS=400))),
-    "ssd_vgg16_voc_image512": (
-        "cfgs/vgg/ssd_vgg16_voc_image512.yml",
-        dict(DATASET=dict(IMAGE_SIZE=(512, 512)), MODEL=_IMAGE512,
-             EVAL=dict(COMPACT_ROWS=400))),
-    "fpn_vgg16_voc": ("cfgs/vgg/fpn_vgg16_voc.yml",
-                      dict(MODEL=dict(SSD_TYPE="FPN"))),
-    "fssd_vgg16_voc": ("cfgs/fssd/fssd_vgg16_voc.yml",
-                       dict(MODEL=dict(SSD_TYPE="FSSD"))),
-    "rfbnet300_vgg16_voc": (
-        "cfgs/rfb/rfbnet300_vgg16_voc.yml",
-        dict(MODEL=dict(SSD_TYPE="RFBNet", ASPECT_RATIOS=[
-            [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]))),
-    "rfbnet512_vgg16_voc": (
-        "cfgs/rfb/rfbnet512_vgg16_voc.yml",
-        dict(DATASET=dict(IMAGE_SIZE=(512, 512)),
-             MODEL=dict(_IMAGE512, SSD_TYPE="RFBNet", ASPECT_RATIOS=[
-                 [2, 3], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]))),
-    "ssd_drn22_voc": ("cfgs/drn/ssd_drn22_voc.yml",
-                      dict(MODEL=dict(BASE="drn_d_22"))),
-    "ssd_drn24_voc": ("cfgs/drn/ssd_drn24_voc.yml",
-                      dict(MODEL=dict(BASE="drn_d_24"))),
-    # no yml: odtpu builds DRN_SSD only from code (tests/test_model_zoo.py)
-    "drnssd_drn22_voc": (None, dict(MODEL=dict(SSD_TYPE="DRN_SSD",
-                                               BASE="drn_d_22"))),
-    "refinedet320_vgg16_voc": (
-        "cfgs/refinedet/refinedet320_vgg16_voc.yml",
-        dict(DATASET=dict(IMAGE_SIZE=(320, 320)),
-             MODEL=dict(SSD_TYPE="RefineDet", STEPS=[8, 16, 32, 64],
-                        MIN_SIZES=[32, 64, 128, 256], MAX_SIZES=[],
-                        ASPECT_RATIOS=[[2], [2], [2], [2]]))),
-}
+# name -> the yml under the checkout's cfgs/ it stands for
+CFGS = {name: osp.join(ROOT_DIR, "cfgs", path) for name, path in (
+    ("ssd_vgg16_voc", "base/ssd_vgg16_voc.yml"),
+    ("ssd_vgg16_coco", "base/ssd_vgg16_coco.yml"),
+    ("ssd_vgg16_coco_image512", "base/ssd_vgg16_coco_image512.yml"),
+    ("ssd_vgg16_voc_image512", "vgg/ssd_vgg16_voc_image512.yml"),
+    ("fpn_vgg16_voc", "vgg/fpn_vgg16_voc.yml"),
+    ("fssd_vgg16_voc", "fssd/fssd_vgg16_voc.yml"),
+    ("rfbnet300_vgg16_voc", "rfb/rfbnet300_vgg16_voc.yml"),
+    ("rfbnet512_vgg16_voc", "rfb/rfbnet512_vgg16_voc.yml"),
+    ("ssd_drn22_voc", "drn/ssd_drn22_voc.yml"),
+    ("ssd_drn24_voc", "drn/ssd_drn24_voc.yml"),
+    ("refinedet320_vgg16_voc", "refinedet/refinedet320_vgg16_voc.yml"))}
+# no yml: odtpu builds DRN_SSD only from code (tests/test_model_zoo.py)
+CFGS["drnssd_drn22_voc"] = None
+_CODE_ONLY = {"drnssd_drn22_voc": {"MODEL": {"SSD_TYPE": "DRN_SSD",
+                                             "BASE": "drn_d_22"}}}
 
 
-def _merge(overlay: dict, into: AttrDict, where: str = "") -> None:
+def merge_cfg_from_file(cfg_filename: str, dst: AttrDict) -> AttrDict:
+    """Read the yml ``cfg_filename`` (``utils.yml``) and merge it into
+    ``dst`` strictly, then fill the derived values."""
+    tree = yml.load(cfg_filename)
+    if tree is None:
+        tree = {}
+    if not isinstance(tree, dict):
+        raise ValueError("{}: the top of a config yml is a mapping, got "
+                         "{}".format(cfg_filename, type(tree).__name__))
+    _merge_a_into_b(AttrDict(tree), dst)
+    return update_cfg(dst)
+
+
+def _merge_a_into_b(a: AttrDict, b: AttrDict, stack=None) -> None:
+    """Merge ``a`` into ``b``; an unknown key is an error."""
+    for k, v_ in a.items():
+        full_key = ".".join(stack) + "." + k if stack is not None else k
+        if k not in b:
+            raise KeyError("Non-existent config key: {}".format(full_key))
+        v = _decode_cfg_value(copy.deepcopy(v_))
+        v = _coerce_cfg_value_type(v, b[k], full_key)
+        if isinstance(v, AttrDict):
+            _merge_a_into_b(v, b[k], [k] if stack is None else stack + [k])
+        else:
+            b[k] = v
+
+
+def _decode_cfg_value(v):
+    """A yml value as the tree holds it: a mapping as an AttrDict, a
+    string through ``literal_eval`` where it is a Python literal
+    (``(('2007', 'test'),)``, ``1e-3``)."""
+    if isinstance(v, dict):
+        return AttrDict(v)
+    if not isinstance(v, str):
+        return v
+    try:
+        v = literal_eval(v)
+    except (ValueError, SyntaxError):
+        pass  # a plain string
+    return v
+
+
+def _coerce_cfg_value_type(value_a, value_b, full_key):
+    """``value_a`` (from the yml) in the type of the default ``value_b``
+    where the two may stand for each other, else a ValueError."""
+    type_a, type_b = type(value_a), type(value_b)
+    if type_a is type_b:
+        return value_a
+    if value_b is None:
+        return value_a
+    if isinstance(value_b, np.ndarray):
+        return np.array(value_a, dtype=value_b.dtype)
+    if isinstance(value_b, str):
+        return str(value_a)
+    if isinstance(value_a, tuple) and isinstance(value_b, list):
+        return list(value_a)
+    if isinstance(value_a, list) and isinstance(value_b, tuple):
+        return tuple(value_a)
+    if isinstance(value_a, int) and isinstance(value_b, float):
+        return float(value_a)
+    raise ValueError(
+        "Type mismatch ({} vs. {}) with values ({} vs. {}) for config key: "
+        "{}".format(type_b, type_a, value_b, value_a, full_key))
+
+
+def _overlay(overlay: dict, into: AttrDict) -> None:
     for key, value in overlay.items():
-        if key not in into:
-            raise KeyError("no config key {}{}".format(where, key))
         if isinstance(value, dict):
-            _merge(value, into[key], where + key + ".")
+            _overlay(value, into[key])
         else:
             into[key] = copy.deepcopy(value)
 
 
 def load_cfg(name: str = "ssd_vgg16_voc") -> AttrDict:
-    """A fresh config tree for one of :data:`CFGS` (derived values filled
-    in): the defaults with that yml's values over them."""
-    if name not in CFGS:
-        raise KeyError("unknown config {!r}; known: {}".format(
-            name, sorted(CFGS)))
+    """A fresh config tree (derived values filled in): the defaults with
+    a yml laid over them. ``name`` is one of :data:`CFGS` or the path of
+    any yml (``odtpu``'s ``load_cfg(path)``)."""
     c = _defaults()
-    _merge(CFGS[name][1], c)
-    return update_cfg(c)
+    if name in CFGS:
+        if CFGS[name] is None:
+            _overlay(_CODE_ONLY[name], c)
+            return update_cfg(c)
+        return merge_cfg_from_file(CFGS[name], c)
+    if not (name.endswith((".yml", ".yaml")) or osp.sep in name):
+        raise KeyError("unknown config {!r}; known: {} or a yml's path"
+                       .format(name, sorted(CFGS)))
+    return merge_cfg_from_file(name, c)
 
 
-def resolve_cfg_args(args) -> str:
-    """The :data:`CFGS` name the command lines' ``args`` ask for; fills
-    ``args.cfg_name`` and ``args.job_group``, the run's name, as
-    ``odtpu.utils.config.resolve_cfg_args`` does.
+def _yml_path(path: str) -> str:
+    """``path`` as given (from the working directory) or, failing that,
+    from the checkout's root; its absolute form."""
+    for candidate in (path, osp.join(ROOT_DIR, path)):
+        if osp.isfile(candidate):
+            return osp.abspath(candidate)
+    raise SystemExit("--cfg {}: no such file".format(path))
 
-    ``--cfg`` names a yml by its path (``cfgs/<group>/<name>.yml``, from
-    the checkout's root or the current directory): it must be one that
-    ``CFGS`` stands for, since the port reads no yaml. The run is named
-    after it unless ``--cfg_name``/``--job_group`` are given. Without
-    ``--cfg``, ``--cfg_name`` (default ssd_vgg16_voc) picks the entry of
-    ``CFGS`` and ``--job_group`` (default base) only names the run.
+
+def resolve_cfg_args(args) -> AttrDict:
+    """The config tree the command lines' ``args`` ask for, from
+    :func:`load_cfg`; fills ``args.cfg_name`` and ``args.job_group``, the
+    run's name, as ``odtpu.utils.config.resolve_cfg_args`` does.
+
+    ``--cfg`` is the path of any yml (from the working directory, or
+    from the checkout's root): the run is named ``<stem>`` in group
+    ``<parent>`` (``base`` when the parent is ``cfgs``) unless
+    ``--cfg_name``/``--job_group`` are given. It is read as the name of
+    :data:`CFGS` where it is the checkout's own file of that name, else
+    from its absolute path. Without ``--cfg``, ``--cfg_name`` (default
+    ssd_vgg16_voc) names an entry of :data:`CFGS`, or else the yml
+    ``cfgs/<job_group>/<cfg_name>.yml`` of the checkout, as ``odtpu``
+    builds that path; ``--job_group`` defaults to base.
     """
     if getattr(args, "cfg", ""):
-        parts = osp.normpath(osp.abspath(args.cfg)).split(osp.sep)
-        names = [n for n, (yml, _) in CFGS.items()
-                 if yml and parts[-3:] == yml.split("/")]
-        if not names:
-            raise SystemExit(
-                "--cfg {}: not a yml that odtpu_torch.utils.config.CFGS "
-                "stands for ({}); the port reads no yaml".format(
-                    args.cfg, ", ".join(y for y, _ in CFGS.values() if y)))
+        path = _yml_path(args.cfg)
         if not getattr(args, "cfg_name", ""):
-            args.cfg_name = osp.splitext(parts[-1])[0]
+            args.cfg_name = osp.splitext(osp.basename(path))[0]
         if not getattr(args, "job_group", ""):
-            args.job_group = parts[-2]
-        name = names[0]
+            parent = osp.basename(osp.dirname(path))
+            args.job_group = parent if parent and parent != "cfgs" \
+                else "base"
+        names = [n for n, p in CFGS.items()
+                 if p and osp.isfile(p) and osp.samefile(p, path)]
+        name = names[0] if names else path
     else:
         args.cfg_name = getattr(args, "cfg_name", "") or "ssd_vgg16_voc"
         args.job_group = getattr(args, "job_group", "") or "base"
-        if args.cfg_name not in CFGS:
-            raise SystemExit("--cfg_name {}: not one of {}".format(
-                args.cfg_name, ", ".join(sorted(CFGS))))
         name = args.cfg_name
-    data = CFGS[name][1].get("DATASET", {})
-    flat = [s for k in ("TRAIN_SETS", "TEST_SETS") for s in data.get(k, ())
-            if isinstance(s, str)]
+        if name not in CFGS:
+            path = osp.join(ROOT_DIR, "cfgs", args.job_group,
+                            name + ".yml")
+            if not osp.isfile(path):
+                raise SystemExit(
+                    "--cfg_name {}: not one of {}, and no {}".format(
+                        name, ", ".join(sorted(CFGS)), path))
+            name = path
+    try:
+        cfg = load_cfg(name)
+    except (KeyError, ValueError) as e:
+        raise SystemExit("{}: {}".format(name, e.args[0])) from None
+    flat = [s for k in ("TRAIN_SETS", "TEST_SETS")
+            for s in cfg.DATASET[k] if isinstance(s, str)]
     if flat:
         raise SystemExit(
             "{}: its yml names data sets as {}, where the datasets take "
             "(year, set) pairs; odtpu reads that yml the same way".format(
                 name, flat))
-    return name
+    return cfg

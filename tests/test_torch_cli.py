@@ -145,12 +145,16 @@ def test_profile_trace_of_the_steps(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--cfg_name", "ssd_vgg16_vox"], "not one of"),
-    (["--cfg", "cfgs/tests/flagship_synth.yml"], "reads no yaml"),
+    (["--cfg", "{tmp}/unknown_key.yml"], "Non-existent config key: "
+                                         "TRAIN.OPTIMIZER.CLIP_NORM"),
     (["--cfg_name", "ssd_vgg16_coco_image512"], r"\(year, set\) pairs"),
     ([], "no CUDA device"),
 ])
-def test_command_lines_refuse(argv, match, monkeypatch):
+def test_command_lines_refuse(argv, match, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "unknown_key.yml").write_text(
+        "TRAIN:\n  OPTIMIZER:\n    CLIP_NORM: 10.0  # no such key\n")
+    argv = [a.format(tmp=tmp_path) for a in argv]
     device = [] if match == "no CUDA device" else ["--device", "cpu"]
     with pytest.raises(SystemExit, match=match):
         train.setup(train.parse_args(argv + device + [
@@ -218,12 +222,22 @@ def test_eval_scores_int8_and_train_refuses_visualisation(runs, tmp_path):
      "ssd_vgg16_coco", ("mine", "base")),
     ({"cfg_name": "rfbnet300_vgg16_voc", "job_group": "rfb"},
      "rfbnet300_vgg16_voc", ("rfbnet300_vgg16_voc", "rfb")),
+    ({"cfg": "cfgs/tests/flagship_synth.yml"},
+     str(ROOT / "cfgs/tests/flagship_synth.yml"),
+     ("flagship_synth", "tests")),
 ])
 def test_resolve_cfg_args(argv, name, run):
+    """The config's tree and the run's name; a yml that no name of
+    ``CFGS`` stands for is read from its path."""
     args = train.parse_args(["--{}={}".format(k, v)
                              for k, v in argv.items()])
-    assert resolve_cfg_args(args) == name
+    cfg = resolve_cfg_args(args)
+    assert cfg == load_cfg(name)
     assert (args.cfg_name, args.job_group) == run
+    if run[0] == "flagship_synth":
+        assert cfg.TRAIN.OPTIMIZER.CLIP_GRAD_NORM == 10.0
+        assert cfg.TRAIN.LR_SCHEDULER.WARMUP_ITERS == 1000
+        assert cfg.TRAIN.LR_SCHEDULER.STEPS == (4000, 5000)
 
 
 @pytest.mark.parametrize("module", ["odtpu_torch.train", "odtpu_torch.eval"])

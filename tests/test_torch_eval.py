@@ -9,7 +9,13 @@ on). Tolerances, and why:
 - ``EvalVOC.validate`` with the flagship weights: mAP within 1e-4 (the
   forward sums in another order in the two frameworks, so a score can
   move in its last digits and two near-equal detections swap ranks);
-- the resumed train loop against the unbroken one: bit-equal.
+- the resumed train loop against the unbroken one: bit-equal;
+- the dense contract (``EVAL.COMPACT = False``) of the narrow SSD of
+  tests/test_torch_train_families.py against ``odtpu``'s
+  ``make_eval_step(compact=False)``: rtol 1e-4, atol 1e-5 (the rows of
+  ``odtpu``'s own mesh tests); its one ``nms_rows`` route against the
+  mask route of the dense contract: equal; VOC and COCO scores through
+  the evaluators: equal to the compact path's where it drops nothing.
 """
 
 import os.path as osp
@@ -31,19 +37,24 @@ from odtpu.parallel import make_eval_step as jmake_eval_step
 from odtpu.utils.checkpoint import load_model_npz as jload_model_npz
 from odtpu.utils.config import default_cfg as jdefault_cfg
 
+from odtpu_torch.data import dataset_factory as tdataset_factory
 from odtpu_torch.data.loader import DetLoader, NetworkInput, pad_batch_to
 from odtpu_torch.data.voc import VOCDetection, parse_voc_xml
 from odtpu_torch.eval import voc_eval
-from odtpu_torch.eval.evaluator import EvalVOC
+from odtpu_torch.eval.evaluator import EvalVOC, eval_solver_factory
 from odtpu_torch.eval_step import make_eval_step
 from odtpu_torch.models import model_factory
+from odtpu_torch.ops.detect import detect_decoded
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state
 from odtpu_torch.utils import checkpoint
-from odtpu_torch.utils.config import default_cfg
+from odtpu_torch.utils.config import default_cfg, load_cfg
 
-from synth import make_voc
+import chip_smoke
+import torch_family_parity as fp
+from synth import make_coco, make_voc
 from test_torch_model import FLAGSHIP
+from test_torch_train_families import _jax_model, tiny_cfg
 from torch_tmp import drop_module_tmp  # noqa: F401
 
 # the tier-1 run puts 6 pytest workers on the CPU's cores: more torch
@@ -307,3 +318,114 @@ def test_fit_saves_validates_and_resumes_bit_equal(voc2, tmp_path):
     assert ma.keys() == mb.keys() and all(
         torch.equal(ma[i]["momentum_buffer"], mb[i]["momentum_buffer"])
         for i in ma)
+
+
+# --- the dense contract, EVAL.COMPACT = False ---
+
+def _narrow_ssd(cfg):
+    """The narrow SSD of ``cfg`` on the CPU in eval mode, its seeded
+    weights with the first conv divided by 64 (the raw pixels' scale
+    taken out, as ``infer.random_state_dict`` does, so that the boxes
+    decode finite), and its priors."""
+    model, priors, _ = model_factory("eval", tiny_cfg(cfg, "SSD"), "cpu")
+    with torch.no_grad():
+        model.backbone.conv1_1.conv.weight /= 64
+    return model.eval(), priors
+
+
+def test_dense_eval_step_meets_odtpu():
+    """The rows at rtol 1e-4 and atol 1e-5, where a row off must have
+    swapped places with one of a score within 1e-5 of its own
+    (``chip_smoke.rows_apart``): the random weights' scores lie close
+    together (~1/21), and a last-bit difference of float32 scores
+    between the two frameworks orders two of them otherwise."""
+    cfg = default_cfg()
+    cfg.EVAL.COMPACT = False
+    model, priors = _narrow_ssd(cfg)
+    images = np.random.RandomState(3).randint(
+        0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    step = make_eval_step(model, priors, cfg)
+    dense = step(images)
+    assert dense.shape == (2, 21, 200, 5)
+    # one nms_rows launch a batch on a card: its rows, survivors first,
+    # are the mask route's of the dense contract
+    decoded = step.decode(*step.forward(torch.from_numpy(images)))
+    assert torch.equal(dense, detect_decoded(
+        *decoded, step.conf_thresh, step.nms_thresh, step.top_k,
+        row_compact=True))
+    jmodel, jpriors = _jax_model(tiny_cfg(jdefault_cfg(), "SSD"))
+    jstep = jmake_eval_step(jmodel, jpriors, tiny_cfg(jdefault_cfg(), "SSD"),
+                            compact=False)
+    want = torch.from_numpy(np.array(jstep.raw_step(
+        fp.odtpu_variables(model.state_dict())["params"], {}, jstep.priors,
+        jnp.asarray(images))))
+    assert (want[..., 0] > 0).sum() > 100
+    sets = (-1, dense.shape[2], 5)
+    off = chip_smoke.rows_apart(dense.reshape(sets), want.reshape(sets))
+    assert len(off) <= 16 and all(o[-1] for o in off), off
+
+
+@pytest.fixture(scope="module")
+def coco(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("coco"))
+    make_coco(root, n_images=4, seed=9)
+    return root
+
+
+def _planted(step, dataset, batch):
+    """``step`` whose decoded boxes and scores carry each image's ground
+    truth at its first priors (score 0.9 for its class, 0 for the
+    others), beside the narrow model's own low-scoring detections: the
+    detect path and the evaluators then score above 0."""
+    truth = [dataset[i] for i in range(len(dataset))]
+    decode, calls = step.decode, [0]
+
+    def planted(*outputs):
+        boxes, conf = (t.clone() for t in decode(*outputs))
+        for k in range(boxes.shape[0]):
+            i = calls[0] * batch + k
+            if i < len(truth):
+                labels = torch.from_numpy(truth[i]["labels"]).long()
+                n = len(labels)
+                boxes[k, :n] = torch.from_numpy(truth[i]["boxes"])
+                conf[k, :n] = 0.0
+                conf[k, torch.arange(n), labels + 1] = 0.9
+        calls[0] += 1
+        return boxes, conf
+
+    step.decode = planted
+    return step
+
+
+@pytest.mark.parametrize("data", ["voc", "coco"])
+def test_dense_contract_scores_as_the_compact_rows(request, data, tmp_path):
+    """The narrow SSD, with the ground truth planted among its
+    detections, over the tree's test set through ``EvalVOC`` or
+    ``EvalCOCO``: the dense contract scores what the compact rows score
+    when their cap (``EVAL.COMPACT_ROWS`` = C * TOP_K) drops nothing."""
+    cfg = load_cfg("ssd_vgg16_" + data)
+    if data == "coco":  # the tree's 5 categories
+        cfg.DATASET.NUM_CLASSES, cfg.MODEL.NUM_CLASSES = 5, 6
+    model, priors = _narrow_ssd(cfg)
+    cfg.DATASET.DATASET_DIR = request.getfixturevalue(data)
+    cfg.DATASET.TEST_SETS = (("2014", "val"),) if data == "coco" \
+        else TEST_SETS
+    cfg.DATASET.EVAL_BATCH_SIZE = 4
+    cfg.DATASET.NUM_WORKERS = 1
+    cfg.DATASET.NUM_EVAL_PICS = 0
+    cfg.EVAL.TOP_K = 20
+    cfg.EVAL.COMPACT_ROWS = cfg.MODEL.NUM_CLASSES * cfg.EVAL.TOP_K
+    loader = tdataset_factory("eval", cfg)
+    scored = {}
+    for compact in (True, False):
+        solver = eval_solver_factory(loader, cfg, str(tmp_path / str(
+            compact)))
+        step = _planted(make_eval_step(model, priors, cfg, compact),
+                        loader.dataset, 4)
+        _, maps = solver.validate(step)
+        scored[compact] = maps, solver.last_timing
+    assert scored[True][1]["dropped_dets"] == 0
+    assert scored[False][1]["dropped_dets"] == 0
+    assert scored[False][1]["images"] == scored[True][1]["images"] > 0
+    assert min(scored[True][0]) > 0.1
+    assert scored[False][0] == scored[True][0]

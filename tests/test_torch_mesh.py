@@ -207,7 +207,9 @@ def _inputs(case, seed, draws):
 
 
 def _one_process(case, data, steps=1):
-    """The port's one-process eval and steps from ``data``'s weights."""
+    """The port's one-process eval and steps from ``data``'s weights;
+    with ``steps``, also the step under ``TPU.REMAT`` from the same
+    weights and the float32 int8 eval."""
     cfg = pw.step_cfg(case)
     state, priors = create_train_state(cfg, "cpu")
     state.model.double()
@@ -218,6 +220,20 @@ def _one_process(case, data, steps=1):
     step = make_train_step(priors.double(), cfg)
     for key in ("step", "next")[:steps]:
         out[key] = pw.step_result(mw.step_on(state, step, data), state)
+    if steps:
+        cfg = pw.step_cfg(case)
+        cfg.TPU.REMAT = True
+        remat, priors = create_train_state(cfg, "cpu")
+        remat.model.double()
+        remat.model.load_state_dict(data["weights"])
+        out["remat"] = pw.step_result(mw.step_on(
+            remat, make_train_step(priors.double(), cfg), data), remat)
+        cfg.TPU.COMPUTE_DTYPE, cfg.TPU.QUANT = "float32", "int8"
+        served, priors = create_train_state(cfg, "cpu")
+        served.model.load_state_dict({k: v.float() if v.is_floating_point()
+                                      else v
+                                      for k, v in data["weights"].items()})
+        out["int8"] = mw.eval_result(served, priors, cfg, data["images"])
     return out, state, step
 
 
@@ -394,9 +410,13 @@ def test_checkpoint_crosses_layouts(meshes, where):
 
 @pytest.mark.parametrize("layout", ODTPU_LAYOUTS)
 def test_mesh_step_meets_odtpu_mesh(meshes, layout):
-    odtpu = meshes["ranks"]["odtpu_" + layout]
+    _meets_odtpu(meshes["ranks"][layout]["fssd"]["step"],
+                 meshes["ranks"]["odtpu_" + layout])
+
+
+def _meets_odtpu(got, odtpu):
+    """A float64 FSSD step against ``odtpu``'s at the narrow64 limits."""
     jm, want = odtpu["metrics"], odtpu["momentum"]
-    got = meshes["ranks"][layout]["fssd"]["step"]
     assert int(got["metrics"]["num_pos"]) == int(jm["num_pos"]) > 0
     for k in ("loss", "loss_loc", "loss_conf"):
         assert float(got["metrics"][k]) == pytest.approx(float(jm[k]),
@@ -439,6 +459,64 @@ def test_replicated_tensors_stay_one_value(meshes):
             k for k in d if d[k] != digests[0][k]))
     assert not torch.equal(res["perturbed"]["running_mean"], res["fssd"][
         "step"]["buffers"]["fusion_bn.running_mean"])
+
+
+# --- TPU.REMAT and int8 serving on the meshes ---
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_remat_step_equals_the_step_without_it(meshes, layout, case):
+    """Within 1e-12; at S = 2 the recompute fetches every halo of the
+    forward again (its bytes equal the forward's), none without remat,
+    and the backward's are the same."""
+    res = meshes["ranks"][layout][case]
+    _hold_step(res["remat"], res["step"], limit=1e-12)
+    plain, remat = res["step"]["sent"], res["remat"]["sent"]
+    assert plain["recompute"] == 0
+    assert remat["recompute"] == remat["forward"] == plain["forward"]
+    assert remat["backward"] == plain["backward"]
+    assert (plain["forward"] > 0) == (mw.layout_of(layout)[2] > 1)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_remat_step_equals_one_process(meshes, layout, case):
+    _hold_step(meshes["ranks"][layout][case]["remat"],
+               meshes["one"][case]["remat"])
+
+
+def test_mesh_remat_step_meets_odtpu_mesh(meshes):
+    """FSSD's remat step at (1, 1, 2) against ``odtpu``'s remat step on
+    its mesh of the same shape."""
+    _meets_odtpu(meshes["ranks"]["1x1x2"]["fssd"]["remat"],
+                 meshes["ranks"]["odtpu_1x1x2"]["remat"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mesh_int8_equals_one_process_bit_for_bit(meshes, case):
+    """int8 serving at (1, 2, 1) in float32: the gathered loc and conf and
+    the rows equal one process's int8 bit for bit."""
+    got = meshes["ranks"]["1x2x1"][case]["int8"]
+    want = meshes["one"][case]["int8"]
+    for g, w in zip(got["outputs"], want["outputs"]):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert (want["rows"][..., 0] > 0).sum() > 0
+    assert torch.equal(got["rows"], want["rows"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_odtpu_int8_mesh_rows_meet_its_unsharded_rows(meshes, case):
+    """``odtpu``'s jitted int8 eval step at (1, 2, 1) against its own
+    unsharded jitted int8 step: rtol 1e-4, atol 1e-5. With the port's
+    one process held to ``odtpu``'s eager int8 (test_torch_quant.py) and
+    the port's mesh to its one process (above), this closes the chain."""
+    odtpu = meshes["ranks"]["odtpu_1x2x1"]["int8"][case]
+    want = odtpu["one"].numpy()
+    assert (want[..., 0] > 0).sum() > 0
+    np.testing.assert_array_equal(odtpu["mesh"].numpy()[..., 5],
+                                  want[..., 5])
+    np.testing.assert_allclose(odtpu["mesh"].numpy(), want, rtol=1e-4,
+                               atol=1e-5)
 
 
 # --- what a mesh is refused ---
@@ -484,16 +562,21 @@ def test_a_mesh_must_make_up_the_world():
     refuse_mesh(load_cfg(), "x")  # 1 and 1 pass
 
 
-def test_int8_and_remat_are_refused_on_a_sharded_mesh(monkeypatch):
-    mesh = parallel.Mesh(2, 0, torch.device("cpu"), 1, 2, 1)
-    for owner in (parallel, parallel.mesh):
-        monkeypatch.setattr(owner, "current", lambda: mesh)
-    cfg = pw.step_cfg("ssd")
-    cfg.TPU.REMAT = True
-    with pytest.raises(NotImplementedError, match="TPU.REMAT"):
-        create_train_state(cfg, "cpu")
+def test_int8_is_refused_on_a_spatial_mesh(monkeypatch):
+    """At (1, 1, 2) with a message that quotes ``odtpu``'s own compile
+    failure; at (1, 2, 1) int8 is laid out."""
     cfg = load_cfg()
     cfg.TPU.QUANT = "int8"
-    cfg.TPU.MESH_MODEL = 2
-    with pytest.raises(NotImplementedError, match="int8"):
-        models.shard_model(torch.nn.Identity(), cfg)
+    for model, spatial_, refused in ((1, 2, True), (2, 1, False)):
+        mesh = parallel.Mesh(2, 0, torch.device("cpu"), 1, model, spatial_)
+        for owner in (parallel, parallel.mesh):
+            monkeypatch.setattr(owner, "current", lambda: mesh)
+        cfg.TPU.MESH_MODEL, cfg.TPU.MESH_SPATIAL = model, spatial_
+        if not refused:
+            assert models.shard_model(torch.nn.Identity(), cfg).tp_keys == {}
+            continue
+        with pytest.raises(NotImplementedError, match="MESH_SPATIAL = 2: "
+                           "odtpu's own int8 eval step does not compile .*"
+                           "The element types of the operands to Pad do "
+                           "not match"):
+            models.shard_model(torch.nn.Identity(), cfg)

@@ -35,6 +35,7 @@ from odtpu_torch.models import create_model, model_factory
 from odtpu_torch.models.vgg import TORCH_INDEX_TO_NAME
 from odtpu_torch.tools import ckpt_to_npz, convert_torch_weights
 from odtpu_torch.train_step import create_train_state, make_train_step
+from odtpu_torch.utils import config
 from odtpu_torch.utils.checkpoint import (Checkpointer, from_odtpu_params,
                                           load_backbone_npz, load_basenet,
                                           load_model_npz, load_odtpu_npz,
@@ -100,7 +101,7 @@ def test_ckpt_to_npz_scores_in_odtpu_as_in_the_port(trained, dtype,
                                                     monkeypatch, capsys):
     out = str(trained["root"] / "model_{}.npz".format(dtype))
     # the command line, its config cut to the narrow net
-    monkeypatch.setattr(ckpt_to_npz, "load_cfg", lambda name: trained["cfg"])
+    monkeypatch.setattr(config, "load_cfg", lambda name: trained["cfg"])
     ckpt_to_npz.main(["--cfg_name", "ssd_vgg16_voc", "--ckpt",
                       str(trained["root"] / "ckpt"), "--out", out,
                       "--dtype", dtype])

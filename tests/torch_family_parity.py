@@ -46,7 +46,7 @@ def jax_cfg(name):
     """``odtpu``'s config of one of the port's named configurations, from
     its yml (DRN_SSD, which has none, as tests/test_model_zoo.py builds
     it)."""
-    yml = CFGS[name][0]
+    yml = CFGS[name]
     cfg = jload_cfg(yml)
     if yml is None:
         cfg.MODEL.SSD_TYPE, cfg.MODEL.BASE = "DRN_SSD", "drn_d_22"

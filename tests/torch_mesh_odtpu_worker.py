@@ -10,7 +10,10 @@ port's float64 weights and batch in ``WORK/fssd.pt`` and ``WORK/ssd.pt``:
 - ``odtpu``'s float64 FSSD ``make_train_step``, the state placed by
   ``param_shardings``: the metrics, and the momenta and batch statistics
   after it as the port's state-dict keys;
-- ``odtpu``'s float64 SSD ``make_eval_step``: the rows.
+- ``odtpu``'s float64 SSD ``make_eval_step``: the rows;
+- at 1x1x2, the FSSD step again under ``TPU.REMAT`` (``jax.checkpoint``);
+- at 1x2x1, SSD's and FSSD's jitted float32 int8 eval steps
+  (``TPU.QUANT``) on the mesh and unsharded: both rows.
 
 Writes ``WORK/odtpu_<DxMxS>.pt``. Its photometric draws are ``odtpu``'s
 own (key 17, step 0), which the test gave the port's ranks as well.
@@ -38,11 +41,12 @@ import torch_parallel_worker as pw
 from test_torch_train_families import _jax_model, tiny_cfg
 
 
-def jax_mesh(case, layout):
-    """odtpu's float64 (model, priors, cfg, mesh) of ``case`` on a CPU
-    mesh of ``layout``."""
+def jax_mesh(case, layout, dtype="float64", **tpu):
+    """odtpu's (model, priors, cfg, mesh) of ``case`` on a CPU mesh of
+    ``layout``, in ``dtype``, the ``tpu`` keys set in ``TPU``."""
     jcfg = tiny_cfg(jdefault_cfg(), *pw.CASES[case])
-    jcfg.TPU.COMPUTE_DTYPE = "float64"
+    jcfg.TPU.COMPUTE_DTYPE = dtype
+    jcfg.TPU.update(tpu)
     jcfg.DATASET.DEVICE_PHOTOMETRIC = True
     jcfg.TPU.MESH_DATA, jcfg.TPU.MESH_MODEL, jcfg.TPU.MESH_SPATIAL = layout
     jmodel, jpriors = _jax_model(jcfg)
@@ -51,10 +55,10 @@ def jax_mesh(case, layout):
     return jmodel, jpriors, jcfg, mesh
 
 
-def odtpu_step(data, layout):
+def odtpu_step(data, layout, remat=False):
     """odtpu's FSSD step from ``data``'s weights: (metrics, momenta,
     batch statistics), the last two as the port's flat maps."""
-    jmodel, jpriors, jcfg, mesh = jax_mesh("fssd", layout)
+    jmodel, jpriors, jcfg, mesh = jax_mesh("fssd", layout, REMAT=remat)
     v = fp.odtpu_variables(data["weights"])
     tx, _ = jtrain.make_optimizer(jcfg)
     state = jtrain.TrainState(step=jnp.zeros((), jnp.int32),
@@ -86,6 +90,23 @@ def odtpu_rows(data, layout):
                            jnp.asarray(data["images"].numpy()))["rows"])
 
 
+def odtpu_int8_rows(data, case, layout):
+    """odtpu's jitted float32 int8 rows of ``case`` from ``data``'s
+    weights, on the mesh of ``layout`` and unsharded."""
+    jmodel, jpriors, jcfg, mesh = jax_mesh(case, layout, "float32",
+                                           QUANT="int8")
+    v = fp.odtpu_variables({k: v.float() if v.is_floating_point() else v
+                            for k, v in data["weights"].items()})
+    images = jnp.asarray(data["images"].numpy())
+    out = {}
+    for key, on in (("mesh", mesh), ("one", None)):
+        step = jtrain.make_eval_step(jmodel, jpriors, jcfg, mesh=on,
+                                     compact=True)
+        out[key] = torch.from_numpy(np.array(step(
+            v["params"], v.get("batch_stats", {}), images)["rows"]))
+    return out
+
+
 def main(work, text):
     layout = mw.layout_of(text)
     jmesh._TP_MIN_CHANNELS = mw.TP_MIN_CHANNELS
@@ -94,9 +115,16 @@ def main(work, text):
     with fp.odtpu_float64():
         metrics, momentum, stats = odtpu_step(load("fssd"), layout)
         rows = odtpu_rows(load("ssd"), layout)
-    torch.save({"metrics": metrics, "momentum": momentum, "stats": stats,
-                "rows": torch.from_numpy(rows)},
-               os.path.join(work, "odtpu_{}.pt".format(text)))
+        out = {"metrics": metrics, "momentum": momentum, "stats": stats,
+               "rows": torch.from_numpy(rows)}
+        if layout == (1, 1, 2):
+            out["remat"] = dict(zip(("metrics", "momentum", "stats"),
+                                    odtpu_step(load("fssd"), layout,
+                                               remat=True)))
+    if layout == (1, 2, 1):
+        out["int8"] = {case: odtpu_int8_rows(load(case), case, layout)
+                       for case in ("ssd", "fssd")}
+    torch.save(out, os.path.join(work, "odtpu_{}.pt".format(text)))
     print("odtpu done", flush=True)
 
 

@@ -15,6 +15,11 @@ test):
   buffers after it (gathered over the model group);
 - runs the eval step on the batch's images from the weights before the
   step: the gathered loc and conf, and the rows;
+- takes the same step again from the same weights under ``TPU.REMAT``
+  (a state of its own), and writes the same, with the halo bytes rank 0
+  sent by pass (forward, recompute, backward) in each of the two steps;
+- at 1x2x1: serves the batch in int8 (``TPU.QUANT``) in float32 from the
+  float32 weights: the gathered loc and conf, and the rows;
 - at 1x2x1, for the case named ``resume``: saves the state after the
   step (``Checkpointer``: the blocks gathered, full tensors written),
   then takes a second step on the same batch, uninterrupted;
@@ -42,6 +47,7 @@ import torch.distributed as dist
 from odtpu_torch import models, parallel
 from odtpu_torch.eval_step import make_eval_step
 from odtpu_torch.models import fssd
+from odtpu_torch.parallel import spatial
 from odtpu_torch.train_step import create_train_state, make_train_step
 from odtpu_torch.utils.checkpoint import Checkpointer
 
@@ -65,16 +71,39 @@ def mesh_cfg(case, layout):
     return cfg
 
 
-def sharded_state(case, layout, weights):
+def sharded_state(case, layout, weights, remat=False, quant=""):
     """A train state of ``case`` on the current mesh holding the full
-    float64 ``weights`` (each rank its blocks), and its step."""
+    ``weights`` (each rank its blocks), and its step: float64, under
+    ``TPU.REMAT`` with ``remat``; float32 with ``quant`` (serving)."""
     cfg = mesh_cfg(case, layout)
+    cfg.TPU.REMAT = remat
+    if quant:
+        cfg.TPU.COMPUTE_DTYPE, cfg.TPU.QUANT = "float32", quant
     state, priors = create_train_state(cfg, "cpu")
-    state.model.double()
-    state.model.load_state_dict(parallel.block_state_dict(state.model,
-                                                          weights))
-    return state, make_train_step(priors.double(), cfg), priors.double(), \
-        cfg
+    dtype = torch.float32 if quant else torch.float64
+    state.model.to(dtype)
+    state.model.load_state_dict(parallel.block_state_dict(state.model, {
+        k: v.to(dtype) if v.is_floating_point() else v
+        for k, v in weights.items()}))
+    priors = priors.to(dtype)
+    return state, make_train_step(priors, cfg), priors, cfg
+
+
+def counted_step(state, step, data):
+    """:func:`full_result` of one step, with the halo bytes this rank
+    sent in it by pass (``parallel.spatial.SENT``)."""
+    before = dict(spatial.SENT)
+    out = full_result(step_on(state, step, data), state)
+    out["sent"] = {k: v - before[k] for k, v in spatial.SENT.items()}
+    return out
+
+
+def eval_result(state, priors, cfg, images):
+    """The eval step's gathered outputs and rows."""
+    ev = make_eval_step(state.model, priors, cfg)
+    outputs = ev.forward(images)
+    return {"outputs": [o.clone() for o in outputs],
+            "rows": ev.detect(*outputs)["rows"].clone()}
 
 
 def full_result(metrics, state):
@@ -144,18 +173,21 @@ def main(work, text):
                           weights_only=True)
         state, step, priors, cfg = sharded_state(case, layout,
                                                  data["weights"])
-        res = {}
-        ev = make_eval_step(state.model, priors, cfg)
-        outputs = ev.forward(data["images"])
-        res["eval"] = {"outputs": [o.clone() for o in outputs],
-                       "rows": ev.detect(*outputs)["rows"].clone()}
-        res["step"] = full_result(step_on(state, step, data), state)
+        res = {"eval": eval_result(state, priors, cfg, data["images"]),
+               "step": counted_step(state, step, data)}
         if case == job["resume"] and layout == (1, 2, 1):
             ckpt = Checkpointer(os.path.join(work, "ckpt"))
             ckpt.save(state.step, state)
             if parallel.is_main():
                 open(os.path.join(work, "ckpt_done"), "w").close()
             res["next"] = full_result(step_on(state, step, data), state)
+        state, step, _, _ = sharded_state(case, layout, data["weights"],
+                                          remat=True)
+        res["remat"] = counted_step(state, step, data)
+        if layout == (1, 2, 1):
+            state, _, priors, cfg = sharded_state(
+                case, layout, data["weights"], quant="int8")
+            res["int8"] = eval_result(state, priors, cfg, data["images"])
         out[case] = res
     if layout == (1, 2, 2) and "fssd" in job["cases"]:
         data = torch.load(os.path.join(work, "fssd.pt"), weights_only=True)
