@@ -18,7 +18,15 @@ Phases, each printing one JSON line:
    (``nms_rows`` also ``op_wrapper_ms``, 200 calls of the registered op
    ``odtpu::nms_rows`` that the serving path calls); beside its plain
    twin and its bound.
-4. main path: seeded full-width SSD300-VGG16 serves uint8 300x300 batches
+4. topk: ``ops.topk.top_k_exact``, ``odtpu``'s two-level exact split (G
+   groups of ~n/G, then the G*k survivors), at every shape the detect
+   paths give it at B = 32 (640 or 2,560 candidate sets over 6,375 to
+   32,756 priors, the cross-class compaction over 4,000 or 16,000 rows,
+   survivors-first over 200): values and indices bit-equal to one flat
+   stable sort on uniform, tie-heavy and all-equal scores; both timed
+   on the device alone and as launched, with the group count; then
+   ``tools.sweep_topk``'s sweeps of G at SSD512's and SSD300's shapes.
+5. main path: seeded full-width SSD300-VGG16 serves uint8 300x300 batches
    of 32 through ``odtpu_torch.infer.Detector``, in bfloat16 (the serving
    default) and in float32 with TF32 off. ``nms_rows`` must launch once
    per batch and ``nms_mask`` never; the rows must be finite and must
@@ -30,8 +38,9 @@ Phases, each printing one JSON line:
    where every op takes its plain version; the mask entry is held
    against its plain twin on the batch's candidates. In bfloat16 a
    ``detect_split`` line times each stage of the serving path's detect
-   tail, on the device alone and as launched.
-5. families: every other detector of the zoo at its published widths,
+   tail, on the device alone and as launched, and the per-set top-k
+   again by one flat stable sort a set.
+6. families: every other detector of the zoo at its published widths,
    with seeded weights (``infer.random_state_dict``): FPN300, FSSD300,
    RFBNet300, RFBNet512, SSD300 over DRN-D-22 and DRN-D-24, DRN_SSD,
    RefineDet320 (its two-step detect), SSD300-COCO (81 classes) and
@@ -47,14 +56,14 @@ Phases, each printing one JSON line:
    ``detect_ms`` (and ``detect_device_ms``, the device alone), the
    convs' GFLOP an image and TFLOP/s, peak memory, and the ``nms_rows``
    entry's time on the batch's candidates beside its bound.
-6. train: seeded full-width SSD300-VGG16 takes train steps on the card
+7. train: seeded full-width SSD300-VGG16 takes train steps on the card
    (bfloat16, batch 32, the photometric distortion on the device, LR
    1e-5, seeded uint8 300x300 images with one GT box each): 3 warm-up
    steps, then 20 timed by CUDA events; images/s, ms/step, the split by
    stage (augment, forward, loss = match and mine, backward, optimizer),
    peak memory, and every step's loss finite with num_pos > 0. The NMS
    kernel must not launch in a train step.
-7. train_parity: one float32 step (TF32 off, batch 2) on the card and the
+8. train_parity: one float32 step (TF32 off, batch 2) on the card and the
    same step on the CPU, with the same weights, batch and injected
    augmentation parameters, and on the CPU in float64.
    The card takes the step with cuDNN and again with cuDNN off. The
@@ -63,13 +72,13 @@ Phases, each printing one JSON line:
    L2 error of 1e-3 of the CPU's with cuDNN off, and of 5e-3 with cuDNN;
    the counts within 1e-3, the ReLU sign flips between the forwards and
    the losses are printed.
-8. family_train: every configuration of the families phase trains at
+9. family_train: every configuration of the families phase trains at
    full width from ``create_train_state``'s init, as ``train`` does for
    SSD300 (bf16, batch 32, 3 warm-up and 10 timed steps): ms/step,
    images/s, the split by stage, peak memory; every loss finite with
    num_pos > 0, every batch norm's running statistics finite and moved,
    no NMS launch. Each model is freed before the next.
-9. family_train_parity: ``train_parity`` for RFBNet300 (batch norm) and
+10. family_train_parity: ``train_parity`` for RFBNet300 (batch norm) and
    RefineDet320 (its two-step loss, the ARM heads moved off their init
    so that the refined anchors, their clamp and the negative-anchor
    filter take part): one step on the card with and without cuDNN
@@ -78,7 +87,7 @@ Phases, each printing one JSON line:
    float32 the losses, positives, ignored anchors and running statistics
    must, and the updates are printed beside the ReLU sign flips that
    put them off (see :func:`family_train_parity`).
-10. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
+11. fit: ``odtpu_torch.train.fit`` on a seeded VOC tree written to a
    temporary directory under ``build/`` (PPM images at the network's
    size, read by ``data.image.imread``, XML and ImageSets), through the
    pass-through transform: a first run from a
@@ -88,7 +97,7 @@ Phases, each printing one JSON line:
    batch. Then the same two runs of RFBNet300: each validation must
    leave its running statistics bit-equal, and a restore of the first
    run's checkpoint must give them back bit-equal.
-11. data: the host pipeline on the card's host, with no OpenCV: a seeded
+12. data: the host pipeline on the card's host, with no OpenCV: a seeded
    VOC tree of 1536 PPM images (48 batches an epoch, so that no figure
    crosses an epoch's end, where the loader restarts its threads) at
    VOC's sizes (500x375, 375x500, 500x333 and odd ones), 1-4 boxes each,
@@ -108,7 +117,7 @@ Phases, each printing one JSON line:
    share, the busy cores, and the same 20 batches again with no loader
    running; every loss finite with num_pos > 0, the sampler called on
    the uint8 path only.
-12. cli: the two command lines at full width on such a tree (1024 + 64
+13. cli: the two command lines at full width on such a tree (1024 + 64
    images): ``odtpu_torch.train``'s ``setup`` and ``run`` train SSD300
    (bf16, batch 32, the float host path, 8 workers) for 20 steps, inside
    one epoch, from a
@@ -118,14 +127,20 @@ Phases, each printing one JSON line:
    ``setup`` and ``run`` score the last checkpoint (``--ckpt``): its mAP
    and its detection files must equal the train run's last validation.
    ``nms_rows`` must launch once per eval batch in each, ``nms_mask``
-   never.
-13. coco: a seeded COCO tree (``instances_minival2014.json``, 64 PPM
+   never. ``python -m odtpu_torch.serve --ckpt`` serves that checkpoint
+   in a subprocess: 2 posted images answered as a ``Detector`` built
+   from it answers. Last, ``python -m odtpu_torch.train`` in a
+   subprocess, 4 steps with a save every 2, under ``--max_rss_gb 0.01``:
+   one re-exec, at step 2, then the run resumes and ends at step 4; its
+   checkpoints equal, bit for bit, those of the same run without the
+   flag stopped at step 2 and resumed with ``--resume``.
+14. coco: a seeded COCO tree (``instances_minival2014.json``, 64 PPM
    images at 640x480 and 480x640, the 80 category ids): the eval command
    line on ``ssd_vgg16_coco`` with the seeded served weights as an npz
    (``--model_npz``) gives mAP@0.5 and mAP@[.5:.95] in [0, 1] with one
    ``nms_rows`` launch per batch; ``EvalCOCO`` fed the ground truth as
    its rows scores 1.0 and 1.0.
-14. int8: seeded SSD300 and every configuration of ``families`` served
+15. int8: seeded SSD300 and every configuration of ``families`` served
    in bfloat16 and then through ``Detector(quant="int8")`` (s8 x s8 ->
    s32 convs by ``torch._int_mm``, the heads in bfloat16), uint8 batches
    of 32, 3 warm-up and 10 timed: images/s, ms/batch, ``forward_ms``
@@ -139,14 +154,14 @@ Phases, each printing one JSON line:
    tap gather, ``_int_mm`` and rescale by CUDA events, per conv and
    summed, each ``_int_mm`` beside its bound (dense int8 operations or
    bytes, whichever takes longer).
-15. serve: ``odtpu_torch.serve`` on 127.0.0.1 (a free port) in a thread,
+16. serve: ``odtpu_torch.serve`` on 127.0.0.1 (a free port) in a thread,
    in bfloat16 and in int8: ``/healthz``, then 20 ``POST /detect`` of
    seeded PPM images at VOC's sizes (500x375, 375x500); every response
    carries detections and equals ``build_engine``'s ``infer`` called
    directly on the same bytes; one 404 and one 400. p50 and p90 of the
    request's wall time and of ``latency_ms``; one ``nms_rows`` launch
    per request.
-16. export: seeded full-width SSD300 exported by ``odtpu_torch.export``
+17. export: seeded full-width SSD300 exported by ``odtpu_torch.export``
    (``torch.export`` through the registered op ``odtpu::nms_rows``) at
    batch 32 in bfloat16 and in int8 convs, and for any batch in
    bfloat16, under ``build/``; one fresh subprocess that imports only
@@ -156,7 +171,7 @@ Phases, each printing one JSON line:
    artifact's at B=1 and B=32), one ``nms_rows`` launch a call; ms per
    batch beside the live path's, export and load seconds, the
    artifact's bytes.
-17. extras: bf16 SSD300 steps at batch 32 with ``LOSS.REPULSION_WEIGHT =
+18. extras: bf16 SSD300 steps at batch 32 with ``LOSS.REPULSION_WEIGHT =
    0.5`` on :func:`parity_batch`'s several boxes an image
    (``loss_repul`` finite and > 0, the repelled priors counted); SSD300
    and RFBNet300 with ``TPU.REMAT`` off and on, 3 warm-up and 10 timed
@@ -164,7 +179,7 @@ Phases, each printing one JSON line:
    from the same state with and without remat (cuDNN deterministic):
    every update and running statistic within 1e-5 relative L2, the
    statistics moved once.
-18. ddp: data parallelism, one process a rank, each launched by
+19. ddp: data parallelism, one process a rank, each launched by
    ``python -m torch.distributed.run`` running this script as a child
    (``--ddp_child``, through the train command line's ``distributed``,
    ``setup`` and ``run``), on a seeded VOC tree (320 + 128 images).
@@ -182,7 +197,7 @@ Phases, each printing one JSON line:
    with it at world 1 on NCCL (cuDNN deterministic): equal losses and
    mAP, ms a step of both, and the all-reduce of SSD300's float32
    gradients in ms.
-19. visualize: (a) the eval-mode norm's backward with respect to x, the
+20. visualize: (a) the eval-mode norm's backward with respect to x, the
    entry ``bn_eval_backward_dx`` of ``csrc/batch_norm.cu``, against
    ``bn_eval_backward_plain`` on RFBNet512's and RFBNet300's largest norm
    inputs (bf16 channels-last), float32 and float64 cases: bit for bit,
@@ -200,7 +215,10 @@ Phases, each printing one JSON line:
    plain path (cuDNN deterministic), and, printed with the ReLU sign
    flips between the two forwards, float32 against the CPU's with cuDNN
    on and off and the CPU's against the CPU's without oneDNN, as for the
-   seeded served weights on the same image and on noise.
+   seeded served weights on the same image and on noise; traced: each
+   ReLU's sign flips and each max pool's argmax changes between the
+   card's float32 forward and the CPU's, and the card's float32
+   gradients with the CPU's choices forced, against the CPU's.
    (c) ``train.setup``/``train.run`` of RFBNet300 at batch 32, 8 steps
    and one validation, with ``SHOW_AUG_STEPS``, ``SHOW_ANCHOR_MAPS``,
    ``SHOW_TEST_IMAGE`` and ``SHOW_PR_CURVE`` off and then on, into a
@@ -212,7 +230,7 @@ Phases, each printing one JSON line:
    equal ``Detector``'s, its PPM changed only in green; ``live
    --headless`` over 20 PPM frames, one ``nms_rows`` launch a frame,
    frame 0's rows equal ``detect_img``'s, the FPS.
-20. mesh: tensor-parallel and spatial meshes, one process a
+21. mesh: tensor-parallel and spatial meshes, one process a
    rank on gloo, every rank on cuda:0, launched by ``python -m
    torch.distributed.run`` running this script (``--mesh_child DxMxS
    WORK``), cuDNN deterministic, on a seeded VOC tree (64 + 32 images):
@@ -281,11 +299,11 @@ from odtpu_torch.infer import (Detector, power_limit, random_images,
 from odtpu_torch.layers.losses import repulsion_loss
 from odtpu_torch.models import model_factory, probe_layer_dims
 from odtpu_torch.models.common import BatchNorm2d, Conv
-from odtpu_torch.ops import detect, quant
+from odtpu_torch.ops import detect, quant, topk
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import batch_norm, build, nms_kernel
 from odtpu_torch.ops.priors import PriorBoxSSD, prior_factory
-from odtpu_torch.tools import get_flops
+from odtpu_torch.tools import get_flops, sweep_topk
 from odtpu_torch.train import fit
 from odtpu_torch.train_step import create_train_state, make_train_step
 from odtpu_torch.utils import visualize
@@ -325,10 +343,10 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters):
-    """Mean milliseconds of fn() on the device alone: ``iters`` calls
-    captured in a CUDA graph and replayed, so the host's cost of each
-    launch does not count. ``fn`` launches on the current stream."""
+def captured(fn, calls=1):
+    """A CUDA graph of ``calls`` calls of fn(), warmed up on a side
+    stream first, and the last call's outputs, which each replay
+    rewrites. ``fn`` launches on the current stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -336,8 +354,16 @@ def graph_ms(fn, iters):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, iters):
+    """Mean milliseconds of fn() on the device alone: ``iters`` calls
+    captured in a CUDA graph and replayed, so the host's cost of each
+    launch does not count."""
+    graph, _ = captured(fn, iters)
     graph.replay()
     return cuda_ms(graph.replay, 3) / iters
 
@@ -646,6 +672,99 @@ def phase_kernel(priors, ptxas):
     return mask, rows_result
 
 
+# (label, rows, n) of the per-set top-k (k = 200) at B = 32 on each detect
+# path: B * (C - 1) candidate sets over the priors, the cross-class
+# compaction over C * 200 rows an image, survivors-first over the dense
+# [B * C, 200] (flat: one group)
+TOPK_SHAPES = (
+    ("SSD300, FPN300, FSSD300, SSD300-DRN22/24", 640, 8732),
+    ("SSD300-COCO", 2560, 8732), ("RFBNet300", 640, 11620),
+    ("RefineDet320", 640, 6375), ("SSD512-VOC", 640, 24564),
+    ("DRN_SSD", 640, 28158), ("RFBNet512", 640, 32756),
+    ("_compact VOC", 32, 4000), ("_compact COCO", 32, 16000),
+    ("survivors_first", 672, 200))
+TOPK_KINDS = ("uniform", "ties", "equal")
+
+
+def topk_scores(kind, rows, n, seed=0, device="cuda"):
+    """Seeded float32 scores [rows, n]: uniform, tie-heavy (drawn from
+    {0, 0.25, 0.5, 1}) or all equal."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "uniform":
+        x = torch.rand(rows, n, generator=g)
+    elif kind == "ties":
+        x = torch.tensor([0.0, 0.25, 0.5, 1.0])[
+            torch.randint(0, 4, (rows, n), generator=g)]
+    else:
+        x = torch.full((rows, n), 0.5)
+    return x.to(device)
+
+
+def grouped_equals_flat(x, k=200, replay=False):
+    """Whether the grouped top-k (the default G) gives the flat stable
+    sort's values and indices on ``x``, bit for bit; ``replay``: the
+    grouped one replayed from a CUDA graph."""
+    def grouped():
+        return topk.top_k_exact(x, k)
+
+    got = grouped()
+    if replay:
+        graph, got = captured(grouped)
+        for t in got:
+            t.zero_()
+        graph.replay()
+    want = topk.top_k_exact(x, k, groups=0)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def phase_topk(k=200, iters=20):
+    """``ops.topk.top_k_exact``, the two-level split, at every shape of
+    :data:`TOPK_SHAPES`: values and indices bit-equal to the flat stable
+    sort on uniform, tie-heavy and all-equal scores, called and replayed
+    from a CUDA graph; the device's ms
+    (``device_ms``: replayed from a CUDA graph) and the ms as launched,
+    grouped and flat, on the uniform scores; then
+    ``tools.sweep_topk``'s sweeps at SSD512's and SSD300's shapes."""
+    if os.environ.get("ODTPU_TOPK_GROUPS") is not None:
+        raise AssertionError("ODTPU_TOPK_GROUPS is set: the phase times "
+                             "the default group counts")
+    shapes = []
+    for label, rows, n in TOPK_SHAPES:
+        for kind in TOPK_KINDS:
+            x = topk_scores(kind, rows, n)
+            for replay in (False, True):
+                if not grouped_equals_flat(x, k, replay):
+                    raise AssertionError(
+                        "top-k at {} [{}, {}], {} scores{}: grouped != "
+                        "flat".format(label, rows, n, kind, " replayed from "
+                                      "a CUDA graph" if replay else ""))
+        x = topk_scores("uniform", rows, n)
+        one = {"shape": label, "rows": rows, "n": n,
+               "groups": topk.num_groups(n, k), "exact": list(TOPK_KINDS)}
+        for mode, groups in (("grouped", None), ("flat", 0)):
+            def fn(groups=groups):
+                return topk.top_k_exact(x, k, groups=groups)
+            fn()
+            one[mode + "_device_ms"] = graph_ms(fn, iters)
+            one[mode + "_ms"] = cuda_ms(fn, iters)
+        shapes.append(one)
+        del x
+    sweeps = [sweep_topk.sweep(640, n, k, device="cuda")
+              for n in (24564, 8732)]
+    torch.cuda.empty_cache()
+    result = {"phase": "topk", "k": k, "shapes": shapes,
+              "sweeps": [{**s, "ms": {str(g): ms for g, ms in s["ms"].items()}}
+                         for s in sweeps],
+              "nvidia_smi": power_limit()}
+    emit(result)
+    for s in sweeps:
+        print("sweep_topk [{}, {}] k {} (default G {}): {}".format(
+            s["rows"], s["n"], k, s["chosen"], ", ".join(
+                "{} {:.4f} ms".format("flat" if g == 0 else "G=%d" % g, ms)
+                for g, ms in s["ms"].items())), flush=True)
+    return result
+
+
 def plain_rows(step, *outputs):
     """The eval step's rows from the plain detect path: odtpu's lax path
     (ops.nms.nms_rows per set), no kernel; RefineDet's outputs through
@@ -688,7 +807,9 @@ def counts():
 def detect_split(step, loc, conf, iters=20):
     """ms of each stage of the detect tail on the stages' real inputs, by
     CUDA events over ``iters`` calls: the device's time alone (the calls
-    replayed from a CUDA graph) and as launched from Python."""
+    replayed from a CUDA graph) and as launched from Python; and both
+    times of ``top_k_per_set`` (the two-level split) done by one flat
+    stable sort a set instead."""
     top_k = step.top_k
     conf_fg = conf[..., 1:]
     cf = conf_fg.shape[-1]
@@ -710,11 +831,18 @@ def detect_split(step, loc, conf, iters=20):
         "dropped_audit": lambda: eval_step.dropped(dense, compact),
     }
     device, launched = {}, {}
+
+    def flat():  # the per-set select by one flat stable sort a set
+        return topk.top_k_exact(conf_fg.transpose(1, 2).contiguous().view(
+            -1, conf_fg.shape[1]), top_k, groups=0)
+
     with torch.inference_mode():
         for name, fn in stages.items():
             device[name] = graph_ms(fn, iters)
             launched[name] = cuda_ms(fn, iters)
-    return device, launched
+        flat_ms = {"device_ms": graph_ms(flat, iters),
+                   "ms": cuda_ms(flat, iters)}
+    return device, launched, flat_ms
 
 
 def dense_contract(step, loc, conf, label, calls=5):
@@ -876,11 +1004,13 @@ def phase_main_path(dtype, warmup=3, batches=20):
               "dense": dense, "rows_equal_plain": True}
     if dtype == "bfloat16":
         result["eval_dense"] = eval_dense(det, images)
-        device, launched = detect_split(step, loc, conf)
+        device, launched, flat = detect_split(step, loc, conf)
         emit({"phase": "detect_split", "dtype": dtype, "batch": BATCH,
               "device_ms": device, "device_sum_ms": sum(device.values()),
               "launched_ms": launched,
               "launched_sum_ms": sum(launched.values()),
+              "top_k_groups": topk.num_groups(loc.shape[1], step.top_k),
+              "top_k_per_set_flat": flat,
               "detect_device_ms": graph_ms(
                   lambda: step.detect(loc, conf), 20),
               "detect_ms": detect_ms, "nvidia_smi": power_limit()})
@@ -2214,6 +2344,8 @@ def phase_cli(n_train=1024, n_test=64, steps=20):
                                  "train run's {}".format(
                                      scored["maps"], same_files,
                                      last["maps"]))
+        served = serve_checkpoint(os.path.join(out, "ckpt"), work)
+        rss = rss_reexec(work, basenet)
         result = {"phase": "cli", "cfg": args.cfg_name, "dtype": "bfloat16",
                   "batch": BATCH, "train_images": n_train,
                   "epoch_batches": n_train // BATCH,
@@ -2225,11 +2357,156 @@ def phase_cli(n_train=1024, n_test=64, steps=20):
                   "eval_batches": eval_batches,
                   "launches": {"train": train_launches,
                                "eval": eval_launches},
-                  "trace": busy, "nvidia_smi": power_limit()}
+                  "trace": busy, "serve_ckpt": served, "max_rss_gb": rss,
+                  "nvidia_smi": power_limit()}
         emit(result)
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_checkpoint(ckpt, work, conf=CONF, requests=2, timeout=300):
+    """``python -m odtpu_torch.serve --ckpt <ckpt>`` (the train command
+    line's checkpoint directory) on a free port of 127.0.0.1: ``requests``
+    PPM images at VOC's sizes posted; each answer must equal
+    ``serve.detections`` of the rows of a ``Detector`` built here from
+    that checkpoint's latest state dict, on the same image."""
+    log = os.path.join(work, "serve_ckpt.log")
+    handle = start([sys.executable, "-m", "odtpu_torch.serve", "--ckpt",
+                    ckpt, "--port", "0", "--conf", str(conf)], log)
+    images = [random_images(1, VOC_SIZES[i % 2], 200 + i)[0]
+              for i in range(requests)]
+    try:
+        port = None
+        while port is None:
+            with open(log) as f:
+                found = re.search(r"^serving .* on :(\d+)", f.read(), re.M)
+            if found:
+                port = int(found.group(1))
+            elif handle[0].poll() is not None \
+                    or time.perf_counter() - handle[3] > timeout:
+                stop(handle)
+                with open(log) as f:
+                    raise AssertionError("serve --ckpt did not start:\n"
+                                         + f.read()[-4000:])
+            else:
+                time.sleep(0.5)
+        start_s = time.perf_counter() - handle[3]
+        answers = [post("http://127.0.0.1:{}/detect".format(port),
+                        b"P6\n%d %d\n255\n" % (img.shape[1], img.shape[0])
+                        + np.ascontiguousarray(img[:, :, ::-1]).tobytes())
+                   for img in images]
+    finally:
+        stop(handle)
+    det = Detector(load_cfg("ssd_vgg16_voc"),
+                   state_dict=Checkpointer(ckpt).read()["model"])
+    for i, (img, (status, got, _)) in enumerate(zip(images, answers)):
+        rows = det(augment.resize_u8(img, (300, 300))[None])["rows"]
+        want = http_serve.detections(rows[0].cpu().numpy(), img.shape[:2],
+                                     list(VOC_CLASSES), conf)
+        if status != 200 or got.get("detections") != want:
+            raise AssertionError("serve --ckpt, request {}: {} {} against "
+                                 "the Detector's {}".format(
+                                     i, status, str(got)[:300],
+                                     str(want)[:300]))
+    del det
+    torch.cuda.empty_cache()
+    return {"requests": requests, "start_seconds": start_s,
+            "detections": [len(a[1]["detections"]) for a in answers],
+            "equal_to_detector": True}
+
+
+# the --max_rss_gb runs of the cli phase: SSD300 on its tree, a save
+# every 2 steps, no validation before the last step
+RSS_YML = """\
+# SSD300, 4 steps, a save every 2 (chip_smoke.py cli, --max_rss_gb)
+GENERAL:
+  HISTORY_ROOT: '{work}/history'
+DATASET:
+  DATASET_DIR: '{work}/voc'
+  TRAIN_SETS: (('2007', 'trainval'),)
+TRAIN:
+  SAVE_ITER: 2
+  EVAL_ITER: 1000
+  LOG_LOSS_ITER: 1
+  OPTIMIZER:
+    LR: 1.0e-5
+"""
+
+
+def same_checkpoints(a, b):
+    """Whether two checkpoint files hold the same step, model and
+    optimizer state, bit for bit."""
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)
+            for p in (a, b))
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and same_bits(x, y)
+        return x == y
+
+    return same(a, b)
+
+
+def rss_reexec(work, basenet, steps=4, timeout=600):
+    """``python -m odtpu_torch.train`` in a subprocess, ``steps`` steps
+    with a save every 2, under ``--max_rss_gb 0.01``: it must re-exec
+    itself once, at step 2 (``odtpu``'s line printed once), resume there
+    and finish at ``steps``. Its checkpoints must equal, bit for bit,
+    those of the same run without the flag (``--max_rss_gb 0``) stopped
+    at step 2 and resumed by hand with ``--resume`` (the arguments of
+    ``train._resume_argv``): a resume restarts the loader's epoch, as
+    ``odtpu``'s does, so a run never stopped sees other batches after
+    step 2."""
+    yml = os.path.join(work, "rss.yml")
+    with open(yml, "w") as f:
+        f.write(RSS_YML.format(work=work))
+
+    def command(out, *extra):
+        return [sys.executable, "-m", "odtpu_torch.train", "--cfg", yml,
+                "--cfg_name", "rss", "--output_dir", os.path.join(work, out),
+                "--basenet", basenet, *extra]
+
+    # the two runs side by side on the card, each in its own processes
+    on = start(command("rss_on", "--max_iter", str(steps), "--max_rss_gb",
+                       "0.01"), os.path.join(work, "rss_on.log"))
+    off = command("rss_off", "--max_rss_gb", "0")
+    try:
+        first = start(off + ["--max_iter", "2"],
+                      os.path.join(work, "rss_off_1.log"))
+        seconds = {"off_to_2": finish(first, timeout)}
+        resumed = train._resume_argv(off + ["--max_iter", str(steps)],
+                                     os.path.join(work, "rss_off", "ckpt"))
+        seconds["off_resumed"] = finish(start(resumed, os.path.join(
+            work, "rss_off_2.log")), timeout)
+        seconds["on"] = finish(on, timeout)
+    finally:
+        stop(on)
+    with open(os.path.join(work, "rss_on.log")) as f:
+        log = f.read()
+    lines = re.findall(r"^RSS .* re-exec with --resume at iter (\d+)$", log,
+                       re.M)
+    if lines != ["2"] or "resumed at step 2" not in log \
+            or "done at iter {}".format(steps) not in log:
+        raise AssertionError("--max_rss_gb run: re-execs at {}, log:\n{}"
+                             .format(lines, log[-3000:]))
+    equal = {}
+    for step in (2, steps):
+        paths = [os.path.join(work, run, "ckpt", "{}.pt".format(step))
+                 for run in ("rss_on", "rss_off")]
+        equal[step] = same_checkpoints(*paths)
+    if not all(equal.values()):
+        raise AssertionError("--max_rss_gb run's checkpoints against the "
+                             "run without it: equal {}".format(equal))
+    return {"steps": steps, "reexec_at": [int(v) for v in lines],
+            "rss_line": re.search(r"^RSS .*$", log, re.M).group(0),
+            "checkpoints_equal": {str(k): v for k, v in equal.items()},
+            "seconds": seconds}
 
 
 def write_coco_tree(root, split="minival2014", n=64, seed=7):
@@ -3025,15 +3302,88 @@ def saliency_norms(model, image):
                 for s in train_debug.source_fn(model)(x)]
 
 
+@contextlib.contextmanager
+def forward_choices(record=None, force=None):
+    """Inside, every ``F.relu`` and ``F.max_pool2d`` call, in call order:
+    with ``record`` (``{"relu": [], "pool": []}``), appends its own
+    choice there, on the CPU (a ReLU's mask of positive inputs; a max
+    pool's argmax indices, flat over each input plane, and its mask of
+    positive maxima); with ``force`` (such a record of another forward),
+    takes that forward's choice in place of its own: a ReLU passes its
+    input where the forced mask is set and gives 0 elsewhere, a max pool
+    gathers its input at the forced indices. Both in the forward and in
+    its backward."""
+    relu, pool = F.relu, F.max_pool2d
+    seen = {"relu": 0, "pool": 0}
+
+    def forced(kind):
+        i = seen[kind]
+        seen[kind] += 1
+        return None if force is None else force[kind][i]
+
+    def choose_relu(x, inplace=False):
+        mask = x > 0
+        if record is not None:
+            record["relu"].append(mask.cpu())
+        f = forced("relu")
+        return relu(x, inplace) if f is None else x * f.to(x.device, x.dtype)
+
+    def choose_pool(x, kernel_size, stride=None, padding=0, dilation=1,
+                    ceil_mode=False, return_indices=False):
+        out, idx = pool(x, kernel_size, stride, padding, dilation,
+                        ceil_mode=ceil_mode, return_indices=True)
+        if record is not None:
+            record["pool"].append((idx.cpu(), (out > 0).cpu()))
+        f = forced("pool")
+        if f is not None:
+            out = x.flatten(2).gather(2, f[0].to(x.device).flatten(2)).view(
+                out.shape)
+        return (out, idx) if return_indices else out
+
+    F.relu, F.max_pool2d = choose_relu, choose_pool
+    try:
+        yield
+    finally:
+        F.relu, F.max_pool2d = relu, pool
+    if force is not None and (seen["relu"] != len(force["relu"])
+                              or seen["pool"] != len(force["pool"])):
+        raise AssertionError("forced {} ReLUs and {} pools of a forward "
+                             "with {} and {}".format(
+                                 seen["relu"], seen["pool"],
+                                 len(force["relu"]), len(force["pool"])))
+
+
+def choices_apart(a, b):
+    """Per call, between two :func:`forward_choices` records of the same
+    forward: the ReLU outputs whose sign differs, and the max-pool windows
+    whose argmax differs (all, and those where a maximum is positive:
+    elsewhere the gradient dies at the ReLU before the pool)."""
+    if len(a["relu"]) != len(b["relu"]) or len(a["pool"]) != len(b["pool"]):
+        raise AssertionError("the two forwards made other calls")
+    relu = [int((x != y).sum()) for x, y in zip(a["relu"], b["relu"])]
+    pool = [(int((ia != ib).sum()), int(((ia != ib) & (pa | pb)).sum()))
+            for (ia, pa), (ib, pb) in zip(a["pool"], b["pool"])]
+    return {"relu_calls": len(relu), "relu_flips": sum(relu),
+            "relu_flips_by_call": {i: n for i, n in enumerate(relu) if n},
+            "relu_outputs": sum(m.numel() for m in a["relu"]),
+            "pool_calls": len(pool),
+            "pool_argmax_apart": [n for n, _ in pool],
+            "pool_argmax_apart_positive": [n for _, n in pool],
+            "pool_windows": [ia.numel() for ia, _ in a["pool"]]}
+
+
 def saliency_run(dtype, weights, image, device, plain_dx=False,
-                 cudnn=True, deterministic=False, mkldnn=True):
+                 cudnn=True, deterministic=False, mkldnn=True, record=None,
+                 force=None):
     """RFBNet300's six raw input gradients on ``device`` in ``dtype``
     (float32: TF32 off) from ``weights`` on ``image``, and the Conv ReLU
     masks of its forward. ``plain_dx``: each norm's backward on the card
     by ``bn_eval_backward_plain`` in place of the kernel's dx entry;
     ``cudnn``: off runs the convs by ATen's own CUDA code;
     ``deterministic``: cuDNN's deterministic algorithms only; ``mkldnn``:
-    off runs the CPU's float32 convs by ATen's own code."""
+    off runs the CPU's float32 convs by ATen's own code; ``record`` and
+    ``force``: the forward's ReLU and max-pool choices recorded, or
+    another forward's taken (:func:`forward_choices`)."""
     cfg = load_cfg("rfbnet300_vgg16_voc")
     cfg.TPU.COMPUTE_DTYPE = dtype
     model, _, _ = model_factory("eval", cfg, device)
@@ -3050,7 +3400,8 @@ def saliency_run(dtype, weights, image, device, plain_dx=False,
         with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
                                         deterministic=deterministic,
                                         allow_tf32=False), \
-                torch.backends.mkldnn.flags(enabled=mkldnn):
+                torch.backends.mkldnn.flags(enabled=mkldnn), \
+                forward_choices(record, force):
             grads = train_debug.saliency(model, image.astype(dtype), cfg,
                                          recording_writer())
     finally:
@@ -3076,10 +3427,14 @@ def saliency_parity(weights, image, tol=1e-9):
     float32 ones against the CPU's with cuDNN on and off, and the CPU's
     against the CPU's without oneDNN (mkldnn), as for the seeded served
     weights (``infer.random_state_dict``) on the same image and on
-    seeded noise. On images with flat boxes any two float32 conv
-    implementations, the CPU's two among them, order the near-equal
-    values of many max-pool windows otherwise and send their gradient
-    elsewhere; float64 orders them alike."""
+    seeded noise; and, traced, the ReLU signs and max-pool argmaxes of
+    the card's float32 forward that differ from the CPU's, call by call
+    (:func:`choices_apart`), and the card's float32 gradients with the
+    CPU's choices forced (:func:`forward_choices`) against the CPU's.
+    On images with flat boxes any two float32 conv implementations, the
+    CPU's two among them, order the near-equal values of many max-pool
+    windows otherwise and send their gradient elsewhere; float64 orders
+    them alike."""
     out = {"float64": grads_apart(saliency_run("float64", weights, image,
                                                "cuda"),
                                   saliency_run("float64", weights, image,
@@ -3090,17 +3445,33 @@ def saliency_parity(weights, image, tol=1e-9):
     served = random_state_dict(load_cfg("rfbnet300_vgg16_voc"))
     noise = np.random.RandomState(3).uniform(
         -100, 100, image.shape).astype(np.float32)
+    # the float32 gap traced on the debug run's weights and image: which
+    # ReLU signs and max-pool argmaxes the card's forward (cuDNN on)
+    # chooses otherwise than the CPU's, and the card's gradients with the
+    # CPU's choices forced
+    chosen = {"cpu": {"relu": [], "pool": []},
+              "cuda": {"relu": [], "pool": []}}
     for label, w, img in (("", weights, image),
                           ("_served_weights", served, image),
                           ("_served_weights_noise_image", served, noise)):
-        cpu = saliency_run("float32", w, img, "cpu")
+        cpu = saliency_run("float32", w, img, "cpu",
+                           record=None if label else chosen["cpu"])
         for cudnn in (True, False):
             out["float32{}{}".format(label, "" if cudnn else "_cudnn_off")] \
-                = grads_apart(saliency_run("float32", w, img, "cuda",
-                                           cudnn=cudnn), cpu)
+                = grads_apart(saliency_run(
+                    "float32", w, img, "cuda", cudnn=cudnn,
+                    record=None if label or not cudnn else chosen["cuda"]),
+                    cpu)
         out["float32{}_cpu_vs_cpu_without_mkldnn".format(label)] = \
             grads_apart(cpu, saliency_run("float32", w, img, "cpu",
                                           mkldnn=False))
+        if not label:
+            out["float32_choices_card_vs_cpu"] = choices_apart(
+                chosen["cuda"], chosen["cpu"])
+            out["float32_card_with_cpu_choices_vs_cpu"] = grads_apart(
+                saliency_run("float32", w, img, "cuda",
+                             force=chosen["cpu"]), cpu)
+            del chosen
     errs = out["float64"]["rel_l2"]
     if len(errs) != 6 or not max(errs) <= tol:
         raise AssertionError("saliency float64 card vs CPU: relative L2 {} "
@@ -4828,6 +5199,7 @@ def main():
     priors = torch.from_numpy(
         prior_factory(cfg)(probe_layer_dims(cfg))).cuda()
     mask, rows = timed("kernel", phase_kernel, priors, ptxas)
+    timed("topk", phase_topk)
     bf16 = timed("main_path_bf16", phase_main_path, "bfloat16")
     timed("main_path_f32", phase_main_path, "float32")
     families = timed("families", phase_families)

@@ -13,7 +13,7 @@ import torch
 from ..data.augment import resize_u8
 from ..data.voc import VOC_CLASSES
 from ..infer import Detector, random_state_dict
-from ..utils.checkpoint import Checkpointer, load_odtpu_npz
+from ..utils.checkpoint import read_weights
 from ..utils.config import load_cfg, resolve_cfg_args
 from ..utils.visualize import put_text, rectangle
 
@@ -43,11 +43,8 @@ def detector(args) -> Detector:
                                                   job_group=""))
     else:
         cfg = load_cfg(args.cfg)
-    npz = args.npz or (args.ckpt if args.ckpt.endswith(".npz") else "")
-    if npz:
-        state_dict = load_odtpu_npz(npz)
-    elif args.ckpt:
-        state_dict = Checkpointer(args.ckpt).read()["model"]
+    if args.npz or args.ckpt:
+        state_dict = read_weights(args.npz or args.ckpt)
     else:
         print("no --ckpt or --npz: seeded weights (seed {})".format(
             args.seed))

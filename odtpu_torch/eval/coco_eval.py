@@ -6,7 +6,9 @@ runs pycocotools' COCOeval for mAP@0.5 and mAP@[.5:.95]). The protocol
 is implemented here in numpy: IoU thresholds .5:.05:.95, 101-point
 interpolated precision, area "all", 100 detections an image, crowd
 ground truth matched but ignored. It gives (mAP@0.5, mAP@[.5:.95]).
-``odtpu``'s pycocotools branch has no caller there and is not ported.
+:func:`evaluate_with_pycocotools` is ``odtpu``'s pycocotools path, kept
+with its lazy import; nothing calls it, and it raises ``ImportError``
+where pycocotools is not installed.
 
 Detections are rows [coco_img_id, x, y, w, h, score, coco_cat_id] (the
 reference's loadRes row format, evaluate_utils.py:199).
@@ -184,3 +186,22 @@ def build_gt_index(dataset):
                 (x, y, bw, bh, int(a.get("iscrowd", 0))))
     return index
 
+
+def evaluate_with_pycocotools(det_rows, anno_file, img_ids):
+    """(mAP@0.5, mAP@[.5:.95]) of ``det_rows`` by pycocotools' COCOeval
+    on the annotations of ``anno_file`` over ``img_ids``
+    (``odtpu/eval/coco_eval.py:188``, the reference's
+    evaluate_utils.py:206-222)."""
+    from pycocotools.coco import COCO
+    from pycocotools.cocoeval import COCOeval
+    coco = COCO(anno_file)
+    pred = coco.loadRes(np.asarray(det_rows, float))
+    e = COCOeval(coco, pred, "bbox")
+    e.params.imgIds = list(img_ids)
+    e.evaluate()
+    e.accumulate()
+    e.summarize()
+    ap05 = e.eval["precision"][0, :, :, 0, 2]
+    ap95 = e.eval["precision"][:, :, :, 0, 2]
+    return (float(np.mean(ap05[ap05 > -1])),
+            float(np.mean(ap95[ap95 > -1])))

@@ -79,20 +79,6 @@ class ServingProgram(nn.Module):
         return _compact(dense, self.top_k)
 
 
-def _state_dict(ckpt: str, model: nn.Module):
-    """The weights ``ckpt`` names: a port checkpoint directory (its latest
-    step) or an ``odtpu`` npz (with ``__batch_stats__/``); None for
-    ``""``, the model's seeded init."""
-    from .utils.checkpoint import Checkpointer, load_odtpu_npz
-    if not ckpt:
-        return None
-    if osp.isdir(ckpt):
-        return Checkpointer(ckpt).read()["model"]
-    if not osp.isfile(ckpt):
-        raise FileNotFoundError("checkpoint not found: " + ckpt)
-    return load_odtpu_npz(ckpt, model)
-
-
 def export_artifact(out_path, cfg=None, cfg_path: str = "", ckpt: str = "",
                     batch: int = 1, quant: str = "",
                     device="cuda") -> dict:
@@ -106,7 +92,7 @@ def export_artifact(out_path, cfg=None, cfg_path: str = "", ckpt: str = "",
     from .models import model_factory
     from .models.common import set_quant
     from .data.voc import VOC_CLASSES
-    from .utils.checkpoint import load_strict
+    from .utils.checkpoint import load_strict, read_weights
     from .utils.config import refuse_mesh, resolve_cfg_args
 
     if cfg is None:
@@ -123,9 +109,8 @@ def export_artifact(out_path, cfg=None, cfg_path: str = "", ckpt: str = "",
         raise SystemExit("no CUDA device; pass --device cpu to export on "
                          "the CPU")
     model, priors, _ = model_factory("eval", cfg, device)
-    state_dict = _state_dict(ckpt, model)
-    if state_dict is not None:
-        load_strict(model, state_dict)
+    if ckpt:
+        load_strict(model, read_weights(ckpt, model))
     model.eval()
     set_quant(model, cfg.TPU.QUANT)
     if device.type == "cuda":

@@ -31,7 +31,8 @@ from .vgg import VGG16
 __all__ = ["SSD", "VGG16", "L2Norm", "MultiBoxHead", "EXTRAS_SPEC",
            "parse_extras", "compute_dtype", "create_model",
            "probe_layer_dims", "model_factory", "init_weights",
-           "BASE_REGISTRY", "SSD_REGISTRY", "FPN", "FSSD", "RFBNet",
+           "BASE_REGISTRY", "SSD_REGISTRY", "register_base",
+           "register_ssd", "FPN", "FSSD", "RFBNet",
            "RefineDet", "DRN", "DRNSSD", "drn_d_22", "drn_d_24",
            "set_quant", "shard_model", "spatial_plan"]
 
@@ -119,6 +120,18 @@ SSD_REGISTRY = {
     "DRN_SSD": _build_drnssd,
     "RefineDet": _build_refinedet,
 }
+
+
+def register_base(name, builder):
+    """Add a base: ``builder(cfg, dtype, **kw)`` under ``MODEL.BASE`` =
+    ``name`` (``odtpu/models/__init__.py:107``)."""
+    BASE_REGISTRY[name] = builder
+
+
+def register_ssd(name, builder):
+    """Add a detector: ``builder(cfg, num_priors, dtype)`` under
+    ``MODEL.SSD_TYPE`` = ``name`` (``odtpu/models/__init__.py:111``)."""
+    SSD_REGISTRY[name] = builder
 
 
 def create_model(cfg):

@@ -20,7 +20,8 @@ The command line (``train.py:114``)::
 
     python -m odtpu_torch.train --cfg_name ssd_vgg16_voc [--job_group base]
         [--resume DIR | --auto_resume] [--basenet NPZ] [--output_dir DIR]
-        [--max_iter N] [--profile_dir DIR] [--device cuda]
+        [--max_iter N] [--profile_dir DIR] [--max_rss_gb GB]
+        [--device cuda]
 
 trains on ``DATASET.DATASET_DIR`` (``data/<SUB_DIR>`` under the checkout)
 into ``--output_dir`` (default ``weights/<job_group>/<cfg_name>``), with
@@ -61,7 +62,16 @@ one-process step on the global batch (``train_step``); every data index
 validates its slice and every rank scores the global mAP; rank 0 writes
 the checkpoints (full tensors, gathered), TensorBoard, the trace and the
 per-step lines.
-``--max_rss_gb`` (a TPU host's memory guard) is not ported.
+
+``--max_rss_gb`` (``train.py:54-61``, ``:294-312``; default
+``ODTPU_MAX_RSS_GB``, else 64; 0 disables) is a ceiling on the host's
+resident memory: at a save before the last step, a process over it
+prints so and replaces itself (``os.execv``) by ``python -m
+odtpu_torch.train`` with its own arguments, any ``--basenet`` or
+``--resume`` taken out and ``--resume <output_dir>/ckpt`` added
+(:func:`_resume_argv`). It frees whatever the process held and goes on
+from the checkpoint just written. A run of several processes skips it:
+one rank's re-exec would leave the others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ import argparse
 import json
 import os
 import shutil
+import sys
 import time
 from pathlib import Path
 
@@ -124,9 +135,37 @@ class _Trace:
         print("profiler trace written to", path, flush=True)
 
 
+def _rss_gb() -> float:
+    """This process's resident memory in GB (``VmRSS`` of
+    ``/proc/self/status``), as ``train.py`` reads it."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / (1024.0 ** 2)
+    return 0.0
+
+
+def _resume_argv(argv, ckpt_dir) -> list:
+    """``argv`` with any ``--basenet``/``--resume`` (either form) taken
+    out and ``--resume ckpt_dir`` added: the checkpoint carries the whole
+    train state, so a re-exec must not import the basenet again."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--basenet", "--resume"):
+            skip = True
+            continue
+        if a.startswith(("--basenet=", "--resume=")):
+            continue
+        out.append(a)
+    return out + ["--resume", str(ckpt_dir)]
+
+
 def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
         resume="", auto_resume=False, basenet="", tb_writer=None,
-        profile_dir="") -> dict:
+        profile_dir="", max_rss_gb=0.0, argv=()) -> dict:
     """Train from seeded weights (or ``basenet``, or a checkpoint) to
     ``cfg.TRAIN.MAX_ITER``.
 
@@ -143,6 +182,11 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     ranks start from the weights of the ranks at ``d = 0, s = 0``, every
     rank validates, and only rank 0 prints, writes checkpoints,
     TensorBoard and the trace. The images/s are the global batch's.
+
+    ``max_rss_gb`` (0: off; one process only): past that much resident
+    memory at a save before the last step, the process re-executes
+    ``python -m odtpu_torch.train`` with ``argv``, the command line's
+    arguments, resuming from the checkpoint just written.
     """
     device = torch.device(device)
     out_dir = Path(out_dir)
@@ -226,6 +270,16 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                 if save:
                     ckpt.save(it, state)
                     say("saved checkpoint at", it, flush=True)
+                    if (max_rss_gb and it < max_iter
+                            and _rss_gb() > max_rss_gb):
+                        print("RSS {:.1f} GB > --max_rss_gb {:.0f}; "
+                              "re-exec with --resume at iter {}".format(
+                                  _rss_gb(), max_rss_gb, it), flush=True)
+                        if tb_writer is not None:
+                            tb_writer.close()
+                        os.execv(sys.executable, [
+                            sys.executable, "-m", "odtpu_torch.train",
+                            *_resume_argv(argv, out_dir / "ckpt")])
                 if validate:
                     _, maps = eval_solver.validate(eval_fn,
                                                    tb_writer=tb_writer)
@@ -269,8 +323,17 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of steps 11-20 there")
     p.add_argument("--device", default="cuda",
                    help="with --multihost, cuda is cuda:LOCAL_RANK")
+    p.add_argument("--max_rss_gb", type=float,
+                   default=float(os.environ.get("ODTPU_MAX_RSS_GB", 64)),
+                   help="host-RSS ceiling: at the next save past it, "
+                        "re-exec with --resume from that checkpoint "
+                        "(default ODTPU_MAX_RSS_GB, else 64; 0 disables; "
+                        "one process only)")
     add_mesh_args(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    # the arguments as given, for a re-exec under --max_rss_gb
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
 
 
 def add_mesh_args(p) -> None:
@@ -361,7 +424,10 @@ def run(args, cfg, out_dir, log_dir, tb_writer=None) -> dict:
         out = fit(cfg, train_loader, solver, out_dir, device=args.device,
                   resume=args.resume, auto_resume=args.auto_resume,
                   basenet=args.basenet, tb_writer=tb,
-                  profile_dir=args.profile_dir)
+                  profile_dir=args.profile_dir,
+                  max_rss_gb=(0.0 if args.multihost or parallel.world() > 1
+                              else args.max_rss_gb),
+                  argv=args.argv)
     finally:
         tb.close()
     if parallel.is_main():

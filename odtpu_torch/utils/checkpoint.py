@@ -216,6 +216,18 @@ def load_basenet(model: nn.Module, path) -> tuple[str, list, list]:
     return scheme, loaded, skipped
 
 
+def read_weights(ckpt, model: nn.Module | None = None) -> dict:
+    """The state dict that ``ckpt`` names, as the serving entry points
+    take it (``odtpu``'s ``restore_eval_variables``): a checkpoint
+    directory of ``python -m odtpu_torch.train`` (its latest step) or an
+    ``odtpu`` npz (see :func:`load_odtpu_npz`)."""
+    if os.path.isdir(ckpt):
+        return Checkpointer(ckpt).read()["model"]
+    if not os.path.isfile(ckpt):
+        raise FileNotFoundError("checkpoint not found: {}".format(ckpt))
+    return load_odtpu_npz(ckpt, model)
+
+
 class Checkpointer:
     """``save(step, state)``, ``latest_step()`` and ``restore(state)`` for
     a :class:`odtpu_torch.train_step.TrainState`, one ``<step>.pt`` file a

@@ -8,6 +8,9 @@ then scores the last checkpoint. Held exactly: its mAP and the
 per-class detection files it writes equal those of the train run's last
 validation (the same weights, the same eval step, the same images).
 ``--quant int8`` scores the same checkpoint in int8 convs.
+``--max_rss_gb`` re-executes the command line as ``odtpu``'s does (with
+``os.execv`` patched), and ``serve.build_engine(ckpt=)`` serves the
+train run's checkpoint.
 """
 
 import json
@@ -21,11 +24,13 @@ import pytest
 import torch
 
 import chip_smoke
-from odtpu_torch import train
+from odtpu_torch import serve, train
+from odtpu_torch.data.augment import resize_u8
 from odtpu_torch.eval import cli
-from odtpu_torch.infer import random_state_dict
+from odtpu_torch.infer import Detector, random_images, random_state_dict
 from odtpu_torch.ops import quant
 from odtpu_torch.utils import logging as tlogging
+from odtpu_torch.utils.checkpoint import Checkpointer
 from odtpu_torch.utils.config import load_cfg, resolve_cfg_args
 
 from synth import make_voc
@@ -62,14 +67,18 @@ def runs(tmp_path_factory):
     basenet = str(work / "basenet.npz")
     np.savez(basenet, **{"conv1_1/kernel": w.permute(2, 3, 1, 0).numpy()})
     out, logs = str(work / "out"), str(work / "logs")
-    results = []
-    for argv in (["--max_iter", "2", "--basenet", basenet],
-                 ["--max_iter", "4", "--auto_resume"]):
-        args = train.parse_args(["--device", "cpu", "--output_dir", out]
-                                + argv)
-        cfg, out_dir, _ = train.setup(args)
-        _point_at(cfg, voc)
-        results.append(train.run(args, cfg, out_dir, logs))
+    results, execs = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        # --max_rss_gb 0: never a re-exec, whatever the process holds
+        mp.setattr(train.os, "execv", lambda *a: execs.append(a))
+        for argv in (["--max_iter", "2", "--basenet", basenet],
+                     ["--max_iter", "4", "--auto_resume", "--max_rss_gb",
+                      "0"]):
+            args = train.parse_args(["--device", "cpu", "--output_dir",
+                                     out] + argv)
+            cfg, out_dir, _ = train.setup(args)
+            _point_at(cfg, voc)
+            results.append(train.run(args, cfg, out_dir, logs))
     eargs = cli.parse_args(["--device", "cpu", "--ckpt",
                             os.path.join(out, "ckpt"), "--output_dir",
                             str(work / "eval")])
@@ -77,7 +86,7 @@ def runs(tmp_path_factory):
     _point_at(ecfg, voc)
     scored = cli.run(eargs, ecfg)
     return {"work": work, "out": out, "logs": logs, "train": results,
-            "eval": scored}
+            "eval": scored, "basenet": basenet, "execs": execs}
 
 
 def test_train_command_line_trains_saves_and_resumes(runs):
@@ -93,6 +102,74 @@ def test_train_command_line_trains_saves_and_resumes(runs):
     assert used["DATASET"]["DATASET_DIR"].endswith("voc")
     assert used["TPU"]["COMPUTE_DTYPE"] == "float32"
     assert used["DATASET"]["TRAIN_SETS"] == [["2007", "trainval"]]
+
+
+def test_max_rss_gb_reexecs_with_resume_as_odtpu(runs, tmp_path, capsys,
+                                                 monkeypatch):
+    """Over ``--max_rss_gb`` at the first save (step 1 of 2), the process
+    re-executes ``python -m odtpu_torch.train`` with its arguments, the
+    ``--basenet`` taken out and ``--resume <output_dir>/ckpt`` added by
+    the rules of ``odtpu``'s ``_resume_argv`` (root ``train.py``; the
+    check ``tests/test_integration.py`` makes of ``odtpu``), after
+    writing that checkpoint. ``--max_rss_gb 0`` (the fixture's second
+    run, 4 saves) never does."""
+    assert runs["execs"] == []
+    import train as odtpu_train  # the root script
+
+    class Exec(Exception):
+        pass
+
+    calls = {}
+
+    def execv(exe, argv):
+        calls["exe"], calls["argv"] = exe, argv
+        raise Exec()
+
+    monkeypatch.setattr(train.os, "execv", execv)
+    monkeypatch.setenv("ODTPU_MAX_RSS_GB", "7")
+    out = str(tmp_path / "out")
+    argv = ["--device", "cpu", "--output_dir", out, "--max_iter", "2",
+            "--basenet", runs["basenet"], "--max_rss_gb", "0.01"]
+    args = train.parse_args(argv)
+    assert train.parse_args([]).max_rss_gb == 7.0
+    cfg, out_dir, _ = train.setup(args)
+    _point_at(cfg, str(runs["work"] / "voc"))
+    capsys.readouterr()
+    with pytest.raises(Exec):
+        train.run(args, cfg, out_dir, str(tmp_path / "logs"))
+    said = capsys.readouterr().out
+    assert "re-exec with --resume at iter 1" in said
+    assert calls["exe"] == sys.executable
+    ckpt = os.path.join(out, "ckpt")
+    assert calls["argv"] == [sys.executable, "-m", "odtpu_torch.train",
+                             *odtpu_train._resume_argv(argv, ckpt)]
+    assert calls["argv"][-2:] == ["--resume", ckpt]
+    assert "--basenet" not in calls["argv"]
+    assert "--max_rss_gb" in calls["argv"]
+    assert os.path.isfile(os.path.join(ckpt, "1.pt"))
+    for given in (["--cfg", "a.yml", "--basenet", "w.npz", "--resume=/old",
+                   "--cfg_name", "x", "--basenet=other.npz"],
+                  ["--resume", "/old", "--auto_resume"]):
+        assert train._resume_argv(given, "/run/ckpt") \
+            == odtpu_train._resume_argv(given, "/run/ckpt")
+
+
+def test_serve_engine_from_a_train_checkpoint(runs):
+    """``serve.build_engine(cfg, ckpt=<a checkpoint dir of the train
+    command line>)``: the detections of a ``Detector`` built from that
+    checkpoint's latest state dict, on a VOC-sized image."""
+    ckpt = os.path.join(runs["out"], "ckpt")
+    infer, names = serve.build_engine(load_cfg(), ckpt=ckpt, device="cpu")
+    cfg = load_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    det = Detector(cfg, state_dict=Checkpointer(ckpt).read()["model"],
+                   device="cpu")
+    img = random_images(1, (375, 500), 0)[0]
+    rows = det(resize_u8(img, (300, 300))[None])["rows"][0].numpy()
+    want = serve.detections(rows, (375, 500), names, 0.01)
+    assert want and infer(img, 0.01) == want
+    with pytest.raises(ValueError, match="not both"):
+        serve.build_engine(load_cfg(), npz="x.npz", ckpt=ckpt, device="cpu")
 
 
 def test_eval_command_line_reproduces_the_last_validation(runs):

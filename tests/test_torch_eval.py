@@ -19,6 +19,7 @@ on). Tolerances, and why:
 """
 
 import os.path as osp
+import sys
 
 import cv2
 import jax.numpy as jnp
@@ -429,3 +430,68 @@ def test_dense_contract_scores_as_the_compact_rows(request, data, tmp_path):
     assert scored[False][1]["images"] == scored[True][1]["images"] > 0
     assert min(scored[True][0]) > 0.1
     assert scored[False][0] == scored[True][0]
+
+
+# --- odtpu's pycocotools path, under a stand-in pycocotools ---
+
+def _stand_in_pycocotools(calls):
+    """Modules ``pycocotools``, ``.coco`` and ``.cocoeval`` whose
+    ``COCO`` and ``COCOeval`` record how they are called and give a
+    seeded precision array [T, R, K, A, M] with -1 where a category has
+    no ground truth."""
+    import types
+
+    class COCO:
+        def __init__(self, anno_file):
+            calls.append(("COCO", anno_file))
+
+        def loadRes(self, rows):
+            calls.append(("loadRes", rows.dtype.name, rows.tolist()))
+            return "pred"
+
+    class COCOeval:
+        def __init__(self, gt, pred, kind):
+            calls.append(("COCOeval", kind, pred))
+            self.params = types.SimpleNamespace(imgIds=None)
+
+        def evaluate(self):
+            calls.append(("imgIds", self.params.imgIds))
+
+        def accumulate(self):
+            p = np.random.RandomState(5).rand(10, 101, 3, 4, 3)
+            p[:, :, 1] = -1.0
+            p[0, :50, 2] = -1.0
+            self.eval = {"precision": p}
+
+        def summarize(self):
+            calls.append(("summarize",))
+
+    pkg = types.ModuleType("pycocotools")
+    coco = types.ModuleType("pycocotools.coco")
+    cocoeval = types.ModuleType("pycocotools.cocoeval")
+    coco.COCO, cocoeval.COCOeval = COCO, COCOeval
+    pkg.coco, pkg.cocoeval = coco, cocoeval
+    return {"pycocotools": pkg, "pycocotools.coco": coco,
+            "pycocotools.cocoeval": cocoeval}
+
+
+def test_evaluate_with_pycocotools_as_odtpu(monkeypatch):
+    from odtpu.eval import coco_eval as jcoco_eval
+    from odtpu_torch.eval import coco_eval
+    rows = [[42, 1.0, 2.0, 3.0, 4.0, 0.9, 7], [43, 5, 6, 7, 8, 0.5, 3]]
+    for name in ("pycocotools", "pycocotools.coco", "pycocotools.cocoeval"):
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError):
+        coco_eval.evaluate_with_pycocotools(rows, "anno.json", (42, 43))
+    results = []
+    for fn in (coco_eval.evaluate_with_pycocotools,
+               jcoco_eval.evaluate_with_pycocotools):
+        calls = []
+        for name, module in _stand_in_pycocotools(calls).items():
+            monkeypatch.setitem(sys.modules, name, module)
+        results.append((fn(rows, "anno.json", (42, 43)), calls))
+    (got, got_calls), (want, want_calls) = results
+    assert got == want and all(isinstance(v, float) for v in got)
+    assert got_calls == want_calls
+    assert ("imgIds", [42, 43]) in got_calls
+    assert got_calls[1][:2] == ("loadRes", "float64")

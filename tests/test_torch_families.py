@@ -16,7 +16,9 @@ from odtpu.models import model_factory as jmodel_factory
 from odtpu.models.fpn import upsample_bilinear as jupsample
 from odtpu.models.refinedet import refinedet320_cfg as jrefinedet320_cfg
 
-from odtpu_torch.models import BASE_REGISTRY, SSD_REGISTRY, model_factory
+from odtpu_torch.models import (BASE_REGISTRY, SSD_REGISTRY, SSD,
+                                create_model, model_factory, register_base,
+                                register_ssd)
 from odtpu_torch.models.fpn import upsample_bilinear
 from odtpu_torch.models.refinedet import refinedet320_cfg
 from odtpu_torch.utils.checkpoint import from_odtpu_params, to_odtpu_params
@@ -82,6 +84,46 @@ def test_registries_cover_odtpu():
     types = {load_cfg(n).MODEL.SSD_TYPE for n in CFGS}
     assert bases == set(BASE_REGISTRY)
     assert types | {"SSD_COCO"} == set(SSD_REGISTRY)
+
+
+def test_register_base_and_ssd_reach_create_model():
+    """A base and a detector added by the helpers, as ``odtpu``'s add
+    them, are what ``create_model`` builds; both registries are put back
+    after."""
+    from odtpu import models as jmodels
+    saved = [(r, dict(r)) for r in (BASE_REGISTRY, SSD_REGISTRY,
+                                    jmodels.BASE_REGISTRY,
+                                    jmodels.SSD_REGISTRY)]
+    built = []
+
+    def base(cfg, dtype, **kw):
+        built.append(("base", kw))
+        return BASE_REGISTRY["vgg16"](cfg, dtype, **kw)
+
+    def detector(cfg, num_priors, dtype):
+        built.append(("ssd", num_priors))
+        return SSD_REGISTRY["SSD"](cfg, num_priors, dtype)
+
+    try:
+        register_base("vgg16_twin", base)
+        register_ssd("SSD_twin", detector)
+        jmodels.register_base("vgg16_twin", jmodels.BASE_REGISTRY["vgg16"])
+        jmodels.register_ssd("SSD_twin", jmodels.SSD_REGISTRY["SSD"])
+        assert set(BASE_REGISTRY) == set(jmodels.BASE_REGISTRY)
+        assert set(SSD_REGISTRY) == set(jmodels.SSD_REGISTRY)
+        cfg = default_cfg()
+        cfg.MODEL.BASE, cfg.MODEL.SSD_TYPE = "vgg16_twin", "SSD_twin"
+        with torch.device("meta"):
+            model, prior = create_model(cfg)
+        assert isinstance(model, SSD) and prior.num_priors == [
+            4, 6, 6, 6, 4, 4]
+        assert built == [("ssd", (4, 6, 6, 6, 4, 4)), ("base", {})]
+    finally:
+        for registry, entries in saved:
+            registry.clear()
+            registry.update(entries)
+    assert "vgg16_twin" not in BASE_REGISTRY
+    assert "SSD_twin" not in jmodels.SSD_REGISTRY
 
 
 # tests/test_upsample.py's shapes, and one more in bfloat16

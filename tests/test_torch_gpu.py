@@ -1,4 +1,5 @@
-"""The CUDA greedy-NMS kernel's two entries against their plain twins
+"""The two-level top-k against the flat sort, the CUDA greedy-NMS
+kernel's two entries against their plain twins
 (the registered op ``odtpu::nms_rows`` too), an exported artifact
 against the live path, the int8 conv (``torch._int_mm``) against its float64 oracle, the
 serving path's launches (SSD300 and RefineDet320) and train steps
@@ -20,7 +21,7 @@ import chip_smoke
 from odtpu_torch import train_debug
 from odtpu_torch.infer import Detector, random_images, random_state_dict
 from odtpu_torch.models import model_factory, probe_layer_dims
-from odtpu_torch.ops import detect, quant
+from odtpu_torch.ops import detect, quant, topk
 from odtpu_torch.ops.boxes import decode
 from odtpu_torch.ops.cuda import batch_norm, nms_kernel
 from odtpu_torch.ops.priors import prior_factory
@@ -38,6 +39,20 @@ def priors():
     cfg = default_cfg()
     return torch.from_numpy(
         prior_factory(cfg)(probe_layer_dims(cfg))).cuda()
+
+
+@pytest.mark.parametrize("kind", chip_smoke.TOPK_KINDS)
+@pytest.mark.parametrize("n", [8732, 32756])
+def test_grouped_top_k_on_card_equals_flat_sort(priors, n, kind):
+    """The two-level top-k at SSD300's and RFBNet512's shapes (640 sets
+    of a batch of 32), ties included: the flat stable sort's values and
+    indices on the card, and the CPU's."""
+    x = chip_smoke.topk_scores(kind, 640, n)
+    assert topk.num_groups(n, 200) >= 4
+    assert chip_smoke.grouped_equals_flat(x)
+    got = topk.top_k_exact(x, 200)
+    want = topk.top_k_exact(x.cpu(), 200, groups=0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
 def test_kernel_equals_plain_on_edge_cases(priors):

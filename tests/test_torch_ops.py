@@ -122,6 +122,55 @@ def test_top_k_exact_ties_match_odtpu(values):
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
 
 
+def _tie_rows(n):
+    """5 rows of n scores: three tie-heavy ({0, 0.25, 0.5, 1}), one all
+    equal, one uniform."""
+    rng = np.random.RandomState(n)
+    x = rng.choice([0.0, 0.25, 0.5, 1.0], (5, n)).astype(np.float32)
+    x[3] = 0.5
+    x[4] = rng.rand(n)
+    return x
+
+
+@pytest.mark.parametrize("groups", [None, 4, 12, 17, 47])
+@pytest.mark.parametrize("n", [8732, 24564, 4000])
+def test_grouped_top_k_matches_odtpu(n, groups):
+    """Padded n (8,732, 24,564) and n a multiple of G (4,000 at G = 8),
+    values and indices bit-equal to odtpu's, ties included."""
+    x = _tie_rows(n)
+    v, i = topk.top_k_exact(_t(x), 200, groups=groups)
+    jv, ji = jtopk.top_k_exact(jnp.asarray(x), 200, groups=groups)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("env", ["0", "8"])
+@pytest.mark.parametrize("n", [8732, 4000])
+def test_top_k_groups_from_the_environment_match_odtpu(monkeypatch, n, env):
+    monkeypatch.setenv("ODTPU_TOPK_GROUPS", env)
+    assert topk.num_groups(n, 200) == int(env)
+    x = _tie_rows(n)
+    v, i = topk.top_k_exact(_t(x), 200)
+    jv, ji = jtopk.top_k_exact(jnp.asarray(x), 200)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+# (n, G) at k = 200 on the port's shapes: SSD300 and its kin, RFBNet300,
+# RefineDet320, SSD512-VOC, DRN_SSD, RFBNet512, the cross-class compaction
+# over VOC's and COCO's classes, and survivors-first (flat)
+TOPK_SHAPES = [(8732, 17), (11620, 22), (6375, 12), (24564, 47),
+               (28158, 53), (32756, 62), (4000, 8), (16000, 30), (200, 1)]
+
+
+@pytest.mark.parametrize("n,g", TOPK_SHAPES)
+def test_top_k_groups_follow_odtpu_heuristic(monkeypatch, n, g):
+    monkeypatch.delenv("ODTPU_TOPK_GROUPS", raising=False)
+    want = max(1, round(n / max(2 * 200 + 128, jtopk._TARGET_GROUP)))
+    assert topk.num_groups(n, 200) == want == g
+    assert topk.num_groups(n, 200, groups=5) == 5
+
+
 # ------------------------------------------------------------------ NMS
 
 @pytest.mark.parametrize("n,k,ties", [(6, 50, False), (3, 37, False),
@@ -269,7 +318,8 @@ def _scene(rng, B, P, C):
 
 
 @pytest.mark.parametrize("B,P,C,top_k", [(2, 300, 6, 50), (1, 80, 6, 20),
-                                         (3, 500, 21, 200)])
+                                         (3, 500, 21, 200),
+                                         (1, 8732, 3, 200)])
 def test_detect_out_matches_odtpu(rng, B, P, C, top_k):
     priors, loc, conf = _scene(rng, B, P, C)
     args = ((0.1, 0.2), 0.01, 0.45, top_k)
