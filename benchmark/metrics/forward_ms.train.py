@@ -1,0 +1,6 @@
+"""Device ms of ``TrainStep.forward`` an update, CUDA events averaged over
+the traced window."""
+
+
+def read(ctx):
+    return ctx["spans_ms"].get("forward")
