@@ -20,6 +20,8 @@ Module names follow ``odtpu`` so each counterpart is easy to find:
 - ``train_step`` / ``train``: training of every family, and
   ``python -m odtpu_torch.train``.
 - ``eval``: VOC and COCO mAP, and ``python -m odtpu_torch.eval``.
+- ``trace``: the spans at the layers' boundaries, off unless enabled,
+  and ``record_function`` labels under a profiler.
 
 Public boundaries keep ``odtpu``'s NHWC layout; convs run NCHW inside.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from . import trace
 from .models.common import quant_mode, set_quant
 from .ops.detect import _compact, detect_decoded, survivors_first
 
@@ -53,6 +54,7 @@ class EvalStep:
         self.means = torch.tensor([float(m) for m in cfg.DATASET.PIXEL_MEANS],
                                   dtype=torch.float32, device=priors.device)
 
+    @trace.spanned("serve.forward")
     @torch.inference_mode()
     def forward(self, images: Tensor) -> tuple[Tensor, ...]:
         """[B, H, W, 3] images (uint8 BGR, or already normalized float)
@@ -69,12 +71,14 @@ class EvalStep:
             set_quant(self.model, quant)
             self.model.train(training)
 
+    @trace.spanned("detect.decode")
     def decode(self, *outputs: Tensor) -> tuple[Tensor, Tensor]:
         """:meth:`forward`'s outputs -> (decoded boxes [B, P, 4], conf
         [B, P, C]) by the model's own ``decode``, which the per-class NMS
         takes."""
         return self.model.decode(*outputs, self.priors, self.variances)
 
+    @trace.spanned("serve.detect")
     @torch.inference_mode()
     def detect(self, *outputs: Tensor):
         """:meth:`forward`'s outputs -> rows and ``dropped``, or the dense
@@ -87,9 +91,11 @@ class EvalStep:
                                row_compact=False)
         if not self.compact:
             return survivors_first(dense)
-        rows = _compact(dense, self.rows_cap)
-        return {"rows": rows, "dropped": dropped(dense, rows)}
+        with trace.span("detect.compact"):
+            rows = _compact(dense, self.rows_cap)
+            return {"rows": rows, "dropped": dropped(dense, rows)}
 
+    @trace.spanned("serve.step", step=True)
     def __call__(self, images):
         """uint8 BGR [B, H, W, 3] images, numpy or a tensor on any device
         (moved to the step's) -> :meth:`detect`'s result on the device."""

@@ -28,6 +28,7 @@ import ctypes
 import torch
 from torch import Tensor
 
+from ... import trace
 from ..topk import top_k_exact
 from . import build
 
@@ -256,6 +257,7 @@ def nms_rows(decoded: Tensor, order: Tensor, top_scores: Tensor, cf: int,
                                     float(iou_thresh), float(score_thresh))
 
 
+@trace.spanned("detect.topk")
 def _top_order(conf_fg: Tensor, k: int) -> tuple[Tensor, Tensor]:
     """conf_fg [B, P, C-1] -> each (image, class) set's k best scores and
     their indices, [B*(C-1), k], score-sorted (row slices, not copies)."""
@@ -307,8 +309,9 @@ def per_class_nms(decoded: Tensor, conf_fg: Tensor, conf_thresh: float,
         rows = rows * (row_scores > 0.0)[..., None]  # zero dead rows' boxes
     else:
         top_scores, order = _top_order(conf_fg, k)
-        rows = nms_rows(decoded, order, top_scores, Cf, nms_thresh,
-                        conf_thresh)
+        with trace.span("detect.nms"):
+            rows = nms_rows(decoded, order, top_scores, Cf, nms_thresh,
+                            conf_thresh)
     if k < top_k:
         rows = torch.nn.functional.pad(rows, (0, 0, 0, top_k - k))
     return rows.reshape(B, Cf, top_k, 5)

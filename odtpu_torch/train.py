@@ -14,7 +14,7 @@ validations restart the throughput window. Resume and auto-resume read
 (``train/time``, a ``Timer``'s last reading) and mAP go to TensorBoard
 when a writer is given, with the validation's images under the
 ``LOG.SHOW_*`` flags, and ``profile_dir`` takes a ``torch.profiler``
-trace of steps 11-20.
+trace of steps 11-20 with the port's spans over them (``spans.json``).
 
 The command line (``train.py:114``)::
 
@@ -86,7 +86,7 @@ from pathlib import Path
 
 import torch
 
-from . import parallel
+from . import parallel, trace
 from .data import dataset_factory
 from .eval.evaluator import eval_solver_factory
 from .eval_step import make_eval_step
@@ -110,7 +110,9 @@ def _sync(device: torch.device) -> None:
 
 class _Trace:
     """A ``torch.profiler`` trace of the steps of :data:`PROFILE_STEPS`,
-    written to ``<profile_dir>/trace.json`` (Chrome trace format)."""
+    written to ``<profile_dir>/trace.json`` (Chrome trace format), and
+    the port's tracer over the same steps, its ``summary()`` written to
+    ``<profile_dir>/spans.json`` (``odtpu_torch.trace``)."""
 
     def __init__(self, profile_dir, device):
         self.dir, self.device, self.prof = profile_dir, device, None
@@ -122,17 +124,23 @@ class _Trace:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
+            trace.reset()
+            trace.enable(cuda=self.device.type == "cuda")
 
     def stop(self):
         if self.prof is None:
             return
         _sync(self.device)
+        spans = trace.summary()
+        trace.disable()
         self.prof.__exit__(None, None, None)
         os.makedirs(self.dir, exist_ok=True)
         path = os.path.join(self.dir, "trace.json")
         self.prof.export_chrome_trace(path)
+        with open(os.path.join(self.dir, "spans.json"), "w") as f:
+            json.dump(spans, f, indent=1)
         self.prof = None
-        print("profiler trace written to", path, flush=True)
+        print("profiler trace and spans written to", self.dir, flush=True)
 
 
 def _rss_gb() -> float:
@@ -223,12 +231,12 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
     last_log_iter, last_log_time = it, time.time()
     timer = Timer()  # the host time of one pass of the loop
     pending = None  # (step, metrics) not read yet
-    trace = _Trace(profile_dir, device)
+    profile = _Trace(profile_dir, device)
     while it < max_iter:
         for batch in train_loader:
             if it >= max_iter:
                 break
-            trace.before_step(it)
+            profile.before_step(it)
             timer.tic()
             metrics = step_fn(state, torch.from_numpy(batch["images"]),
                               torch.from_numpy(batch["boxes"]),
@@ -259,7 +267,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
             pending = (it, metrics)
             timer.toc(average=False)
             if it == PROFILE_STEPS[1]:
-                trace.stop()
+                profile.stop()
 
             save = it % save_every == 0 or it == max_iter
             validate = it % eval_every == 0 or it == max_iter
@@ -293,7 +301,7 @@ def fit(cfg, train_loader, eval_solver, out_dir, device="cuda", seed=0,
                             tb_writer.add_scalar("mAP/mAP@[.5:.95]",
                                                  maps[1], it)
                 last_log_time += time.time() - paused
-    trace.stop()
+    profile.stop()
 
     ckpt.save(max_iter, state, force=True)
     out.update(step=it, state=state, ckpt_steps=ckpt.all_steps())
@@ -320,7 +328,9 @@ def parse_args(argv=None):
     p.add_argument("--max_iter", type=int, default=0,
                    help="override TRAIN.MAX_ITER")
     p.add_argument("--profile_dir", default="",
-                   help="write a torch.profiler trace of steps 11-20 there")
+                   help="write a torch.profiler trace of steps 11-20 "
+                   "there (trace.json) and the port's spans over them "
+                   "(spans.json)")
     p.add_argument("--device", default="cuda",
                    help="with --multihost, cuda is cuda:LOCAL_RANK")
     p.add_argument("--max_rss_gb", type=float,

@@ -77,7 +77,7 @@ import torch
 from torch import Tensor, nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from . import parallel
+from . import parallel, trace
 from .data.device_aug import draw_params, preprocess_train_batch
 from .layers.losses import multibox_loss, refinedet_loss, repulsion_loss
 from .models import compute_dtype, model_factory, shard_model
@@ -238,6 +238,7 @@ class TrainStep:
         return parallel.local_rows(
             draw_params(batch * parallel.data_world(), g), batch)
 
+    @trace.spanned("train.augment")
     def augment(self, images: Tensor, step: int,
                 aug_params: dict | None = None) -> Tensor:
         if not self.device_photo:
@@ -251,6 +252,7 @@ class TrainStep:
         return preprocess_train_batch(images, aug_params, self.means,
                                       self.distort, self.input_dtype)
 
+    @trace.spanned("train.forward")
     def forward(self, state: TrainState, images: Tensor) -> tuple:
         """The model's raw outputs: (loc, conf), RefineDet's (arm_loc,
         arm_conf, odm_loc, odm_conf). Under ``TPU.REMAT`` the backward
@@ -269,6 +271,7 @@ class TrainStep:
         with set_checkpoint_early_stop(False):
             return checkpoint(run, images, use_reentrant=False)
 
+    @trace.spanned("train.loss")
     def loss(self, outputs: tuple, boxes: Tensor, labels: Tensor,
              step: int) -> dict:
         """The metrics of :meth:`forward`'s ``outputs`` at update ``step``
@@ -305,6 +308,7 @@ class TrainStep:
             metrics["loss_repul"] = loss_rep
         return metrics
 
+    @trace.spanned("train.backward")
     def backward(self, state: TrainState, metrics: dict) -> None:
         state.optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
@@ -319,6 +323,7 @@ class TrainStep:
             parallel.all_reduce_grads(params,
                                       parallel.sharded_params(state.model))
 
+    @trace.spanned("train.update")
     def update(self, state: TrainState) -> None:
         if self.clip > 0:
             clip_by_global_norm([p for group in state.optimizer.param_groups
@@ -332,13 +337,16 @@ class TrainStep:
             parallel.sync_replicated_buffers(state.model)
         state.step += 1
 
+    @trace.spanned("train.step", step=True)
     def __call__(self, state: TrainState, images: Tensor, boxes: Tensor,
                  labels: Tensor, aug_params: dict | None = None) -> dict:
         images = self.augment(images.to(self.device, non_blocking=True),
                               state.step, aug_params)
-        metrics = self.loss(self.forward(state, images),
-                            boxes.to(self.device), labels.to(self.device),
-                            state.step)
+        outputs = self.forward(state, images)
+        # a blocking copy: the host waits for the work queued so far
+        with trace.span("train.targets_h2d"):
+            boxes, labels = boxes.to(self.device), labels.to(self.device)
+        metrics = self.loss(outputs, boxes, labels, state.step)
         self.backward(state, metrics)
         self.update(state)
         return self.report(metrics)

@@ -217,6 +217,7 @@ def test_profile_trace_of_the_steps(tmp_path):
     torch.ones(8).sum()
     trace.stop()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    assert (tmp_path / "prof" / "spans.json").stat().st_size > 0
     trace.stop()  # a second stop is a no-op
 
 
